@@ -10,9 +10,12 @@ Phases, one line or more each; any failure exits non-zero before the verdict:
 
 1. device   — ``nvidia-smi`` name and power limit, torch's view of the card;
 2. build    — every kernel of the path compiled with nvcc from ``csrc/``;
-3. kernels  — each kernel held against its plain PyTorch version on the card
-   (five table layouts x {f32, int16, int8} x {score, detect}, edge
-   documents, window limits, a wide-L case);
+3. kernels  — each kernel held against its plain PyTorch version on the card:
+   fused detect over five table layouts x {f32, int16, int8} x {score,
+   detect}, edge documents, window limits and a wide-L case; the row
+   histogram on both sides of its shared-memory threshold; the bigram
+   histogram (mask_n 1 and 2) and bigram score (L = 3 and 16) over edge
+   documents with and without window limits;
 4. main     — ``LanguageDetector.fit`` → ``LanguageDetectorModel.transform``
    at the 176-language hashed config (gram lengths 1..5, 2^20 buckets,
    profile size 400; the JAX package's ``bench.py`` config 5) on the same
@@ -20,7 +23,20 @@ Phases, one line or more each; any failure exits non-zero before the verdict:
    host float64 scorer, then again with int16 and int8 tables;
 5. times    — the kernel, its plain version and ``embedding_bag`` at the
    runner's largest config-5 batch (CUDA events), the kernel's lower bound,
-   and end-to-end transform docs/s.
+   and end-to-end transform docs/s;
+6. config3  — bench config 3 (50 languages, exact n = 1..5, profile 1,000;
+   cuckoo membership): fit → transform through the hybrid strategy, i.e.
+   the bigram-histogram kernel (n <= 2) and the row-histogram kernel
+   (n = 3..5), chunked, empty and all-miss documents included; labels
+   against the plain versions on the card and the host float64 scorer;
+   scores unchanged with TF32 allowed process-wide;
+7. kernel5  — the bigram-score kernel's paths: the same exact n = 1..5
+   shape at 10 languages (auto → hybrid) and bench config 1 (3 languages,
+   exact bigrams, profile 2,000) with strategy='pallas';
+8. times    — the three histogram-side kernels at the config-3 runner's
+   largest batch: kernel, plain version, lower bound and one library call
+   each (``bincount``, ``bincount``, ``embedding_bag``), then end-to-end
+   config-3 docs/s and the device's busy share.
 
 It imports nothing of JAX. Without a CUDA card, or without the package
 beside it, it exits non-zero and prints no result.
@@ -353,17 +369,105 @@ def phase_kernels(torch, dev) -> float:
     return max_err
 
 
+def _bigram_edge_batch(rng, pad: int):
+    """Edge documents for the bigram kernels: empty, 1 byte, 0x00/0xFF,
+    short and long random documents, one that fills the padded width (its
+    last window's next byte is past the width), window limits on half the
+    rows; 28 rows (not a multiple of 8)."""
+    docs, lim = _edge_batch(rng, 11, pad)
+    docs.append(b"\xff" * pad)
+    lim = np.append(lim, pad).astype(np.int32)
+    return docs, lim
+
+
+def phase_kernels_hist(torch, dev) -> dict[str, float]:
+    """The row-histogram, bigram-histogram and bigram-score kernels against
+    their plain versions on the card: counts bit for bit, scores within
+    ATOL/RTOL. Returns the max abs error per kernel."""
+    from spark_languagedetector_tpu_torch.ops import score_hist as SH
+    from spark_languagedetector_tpu_torch.ops import score_pallas as SP
+    from spark_languagedetector_tpu_torch.ops.encoding import pad_batch
+
+    rng = np.random.default_rng(11)
+    errs = {"row_hist": 0.0, "bigram_hist": 0.0, "bigram_score": 0.0}
+
+    # Row histogram: random rows planes (misses, out-of-range ids, the miss
+    # row) with per-document vmax, Rhi on both sides of the shared-memory
+    # threshold.
+    for rhi in (8, SH.SHARED_MEMORY_ROWS // 256, SH.SHARED_MEMORY_ROWS // 256 + 8, 536):
+        R = rhi * 256
+        B, K, W = 13, 3, 700
+        rows = rng.integers(-2, R + 2, (B, K * W)).astype(np.int32)
+        hot = rng.random((B, K * W)) < 0.3  # a hot row and the miss row
+        rows[hot] = rng.choice([5, R - 1], int(hot.sum()))
+        vmax = rng.integers(0, W + 1, B).astype(np.int32)
+        vmax[:3] = (0, 1, W)
+        rows_d = torch.from_numpy(rows).to(dev)
+        vmax_d = torch.from_numpy(vmax).to(dev)
+        got = SH.row_hist_kernel(rows_d, vmax_d, W, rhi, R - 1)
+        torch.cuda.synchronize()
+        ref = SH.row_hist_plain(rows_d, vmax_d, W, rhi, R - 1)
+        if not torch.equal(got, ref):
+            fail(f"row_hist Rhi={rhi}: counts differ from the plain version "
+                 f"({int((got != ref).sum())} entries)")
+        path = "shared" if R <= SH.SHARED_MEMORY_ROWS else "global"
+        say("kernels", f"row_hist Rhi={rhi} ({path} counts) B={B}: bit-exact, "
+            f"{int(ref.sum())} windows counted")
+
+    # Bigram histogram and bigram score over edge documents.
+    for pad in (128, 512):
+        docs, lim = _bigram_edge_batch(rng, pad)
+        batch, lengths = pad_batch(docs, pad)
+        bd = torch.from_numpy(batch).to(dev)
+        ld = torch.from_numpy(lengths).to(dev)
+        for limit in (np.full(len(docs), pad, np.int32), lim):
+            md = torch.from_numpy(limit).to(dev)
+            for mask_n in (1, 2):
+                got = SP.bigram_hist_kernel(bd, ld, md, mask_n)
+                torch.cuda.synchronize()
+                ref = SP.bigram_hist_plain(bd, ld, md, mask_n)
+                if not torch.equal(got, ref):
+                    fail(f"bigram_hist S={pad} mask_n={mask_n}: counts differ from "
+                         f"the plain version ({int((got != ref).sum())} entries)")
+            for L in (3, 16):
+                w1 = torch.from_numpy(rng.normal(size=(256, L)).astype(np.float32)).to(dev)
+                w2 = torch.from_numpy(rng.normal(size=(65536, L)).astype(np.float32)).to(dev)
+                for has1, has2 in ((True, True), (False, True), (True, False)):
+                    got = SP.bigram_score_kernel(bd, ld, md, w1, w2, has1, has2)
+                    torch.cuda.synchronize()
+                    ref = SP.bigram_score_plain(bd, ld, md, w1, w2, has1, has2)
+                    err = float((got - ref).abs().max())
+                    errs["bigram_score"] = max(errs["bigram_score"], err)
+                    if not torch.allclose(got, ref, atol=ATOL, rtol=RTOL):
+                        fail(f"bigram_score S={pad} L={L} has1={has1} has2={has2}: "
+                             f"max abs err {err:.3g}")
+        say("kernels", f"bigram_hist S={pad} B={len(docs)} mask_n 1,2 with and without "
+            f"limits: bit-exact; bigram_score L=3,16: max abs err "
+            f"{errs['bigram_score']:.3g}")
+    return errs
+
+
 @contextlib.contextmanager
 def plain_version(SF):
-    """Route the fused wrapper's CUDA branch to the plain PyTorch version, so
+    """Route every kernel wrapper's CUDA branch to its plain PyTorch version
+    (the fused, row-histogram, bigram-histogram and bigram-score kernels), so
     the runner's whole path (plan, chunking, argmax) runs unchanged on the
-    same device with the kernel swapped out."""
-    real = SF.fused_kernel
-    SF.fused_kernel = SF.fused_plain
+    same device with the kernels swapped out."""
+    from spark_languagedetector_tpu_torch.ops import score_hist as SH
+    from spark_languagedetector_tpu_torch.ops import score_pallas as SP
+
+    swaps = [(SF, "fused_kernel", SF.fused_plain),
+             (SH, "row_hist_kernel", SH.row_hist_plain),
+             (SP, "bigram_hist_kernel", SP.bigram_hist_plain),
+             (SP, "bigram_score_kernel", SP.bigram_score_plain)]
+    real = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
+    for mod, name, plain in swaps:
+        setattr(mod, name, plain)
     try:
         yield
     finally:
-        SF.fused_kernel = real
+        for mod, name, fn in real:
+            setattr(mod, name, fn)
 
 
 def phase_main(torch, dev):
@@ -397,7 +501,7 @@ def phase_main(torch, dev):
     if [n for n, *_ in lay.inline] != [1, 2] or lay.rows_lengths != (3, 4, 5):
         fail("config 5 should score lengths 1-2 inline and 3-5 through the rows plane")
 
-    SF.FUSED_DETECT.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     pred = model.transform(Table({"fulltext": texts})).column("lang").tolist()
     torch.cuda.synchronize()
@@ -564,6 +668,301 @@ def phase_times(torch, dev, model, runner, quant_runners, eval_docs):
                         bound_by=bound_by, library_ms=library_ms)
 
 
+def reset_launches() -> None:
+    from spark_languagedetector_tpu_torch.ops._kernels import KERNELS
+
+    for k in KERNELS:
+        k.launches = 0
+
+
+def read_launches() -> dict[str, int]:
+    from spark_languagedetector_tpu_torch.ops._kernels import KERNELS
+
+    return {k.name: k.launches for k in KERNELS}
+
+
+def check_path(torch, SF, what: str, runner, byte_docs, ids, profile, n_host: int) -> None:
+    """Labels of one path against the plain versions on the card (whole
+    input) and the host float64 scorer (first ``n_host`` documents), both
+    outside near-ties."""
+    from spark_languagedetector_tpu_torch.ops.score import score_batch_numpy
+
+    n_host = min(n_host, len(byte_docs))
+    with plain_version(SF):
+        plain_scores = runner.score(byte_docs)
+    flips = check_labels(f"{what} kernels vs plain", ids, np.argmax(plain_scores, 1),
+                         plain_scores)
+    say(what, f"labels vs the plain versions on the card: {len(ids) - flips}/{len(ids)} "
+        f"identical, {flips} near-tie exceptions")
+    w, sorted_ids = profile.host_arrays()
+    host = score_batch_numpy(byte_docs[:n_host], w, sorted_ids, profile.spec)
+    flips = check_labels(f"{what} kernels vs host f64", ids[:n_host], np.argmax(host, 1), host)
+    say(what, f"label agreement with score_batch_numpy (host f64) on {n_host} docs: "
+        f"{1 - flips / n_host:.4f} ({flips} near-tie exceptions)")
+
+
+def phase_config3(torch, dev):
+    """Bench config 3 (50 languages, exact n = 1..5, profile 1,000) through
+    fit → transform: auto picks hybrid, which runs the bigram-histogram
+    kernel for n <= 2 (50 > 16 languages) and the row-histogram kernel for
+    n = 3..5."""
+    from spark_languagedetector_tpu_torch import LanguageDetector, Table
+    from spark_languagedetector_tpu_torch.ops import score_fused as SF
+
+    langs = language_names(50)
+    train, train_labels = make_corpus(langs, 40 * len(langs), seed=1)
+    t0 = time.perf_counter()
+    model = (LanguageDetector(langs, [1, 2, 3, 4, 5], 1000, device=str(dev))
+             .set_vocab_mode("exact")
+             .fit(Table({"lang": train_labels, "fulltext": train})))
+    p = model.profile
+    fit_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    runner = model.runner
+    say("config3", f"fit {len(train)} docs ({sum(map(len, train)) / 1e6:.2f} MB) in "
+        f"{fit_s:.1f}s: G={p.num_grams} grams, {p.spec}; runner built in "
+        f"{time.perf_counter() - t0:.1f}s (cuckoo + bucket tables, dense n<=2 sub-table)")
+    say("config3", f"runner strategy={runner.strategy} ({runner.strategy_reason}); "
+        f"batch size {runner.batch_size}")
+    if runner.strategy != "hybrid" or runner.hist_state is None:
+        fail(f"config 3 should run hybrid with the row histogram, got {runner.strategy!r} "
+             f"(hist state {'set' if runner.hist_state is not None else 'missing'})")
+
+    eval_docs, eval_labels = make_corpus(langs, 8000, seed=2)
+    long_docs, long_labels = make_corpus(langs[:3], 3, mean_len=20000, seed=3)
+    edge = ["", "\x01\x02\x03\x04\x05\x06", "\x01"]  # empty and all-miss: label 0
+    texts = eval_docs + long_docs + edge
+    byte_docs = [t.encode() for t in texts]
+    reset_launches()
+    t0 = time.perf_counter()
+    pred = model.transform(Table({"fulltext": texts})).column("lang").tolist()
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    launches = read_launches()
+    say("config3", f"transform {len(texts)} docs ({len(long_docs)} chunked, "
+        f"{len(edge)} edge): {cold_s:.2f}s (first call); launches {launches}")
+    if launches["row_hist"] <= 0 or launches["bigram_hist"] <= 0:
+        fail("config 3 never launched the row-histogram or bigram-histogram kernel")
+    idx = {l: i for i, l in enumerate(langs)}
+    ids = np.asarray([idx[l] for l in pred])
+    truth = np.asarray([idx[l] for l in eval_labels + long_labels])
+    acc = float(np.mean(ids[: len(truth)] == truth))
+    say("config3", f"accuracy vs corpus labels {acc:.4f}")
+    if ids[-3:].tolist() != [0, 0, 0]:
+        fail(f"empty and all-miss documents must label 0, got {ids[-3:].tolist()}")
+    check_path(torch, SF, "config3", runner, byte_docs, ids, p, 1000)
+
+    # TF32 allowed process-wide must not reach the histogram contractions.
+    sample = byte_docs[:2000]
+    ref_scores, ref_ids = runner.score(sample), runner.predict_ids(sample)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf_scores, tf_ids = runner.score(sample), runner.predict_ids(sample)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    if not (np.array_equal(tf_scores, ref_scores) and np.array_equal(tf_ids, ref_ids)):
+        fail("allow_tf32=True changed config-3 scores or labels "
+             f"(max abs diff {float(np.abs(tf_scores - ref_scores).max()):.3g})")
+    say("config3", f"allow_tf32=True: {len(sample)} docs' scores and labels identical")
+
+    sel, pad_to = max(runner.plan([len(d) for d in byte_docs[: len(eval_docs)]]),
+                      key=lambda item: len(item[0]) * item[1])
+    h = runner.hist_state
+    B, K, L = len(sel), len(runner.pallas_state.rest), runner.num_langs
+    W = pad_to - min(runner.pallas_state.rest) + 1
+    mb = 1e6
+    say("config3", f"G={p.num_grams}, Rhi={h.rhi} ({h.rhi * 256} padded rows); tables: "
+        f"weights {h.weights_pad.numel() * 4 / mb:.1f} MB as f32 "
+        f"({h.weights_pad.numel() * 8 / mb:.1f} MB held as f64), bucket "
+        f"{h.bucket.numel() * 4 / mb:.2f} MB, bigram views "
+        f"{(runner.pallas_state.w1.numel() + runner.pallas_state.w2.numel()) * 4 / mb:.1f} MB; "
+        f"largest batch B={B} x S={pad_to}: rows plane {B * K * W * 4 / mb:.1f} MB, "
+        f"row histogram {B * h.rhi * 256 * 4 / mb:.1f} MB, bigram histogram "
+        f"{B * 65536 * 4 / mb:.1f} MB")
+    return model, runner, eval_docs, launches
+
+
+def phase_kernel5(torch, dev):
+    """The bigram-score kernel's paths: exact n = 1..5 at 10 languages (auto
+    → hybrid, L <= 16) and bench config 1 (3 languages, exact bigrams,
+    profile 2,000) with strategy='pallas'."""
+    from spark_languagedetector_tpu_torch import LanguageDetector, Table
+    from spark_languagedetector_tpu_torch.api.runner import BatchRunner
+    from spark_languagedetector_tpu_torch.ops import score_fused as SF
+
+    langs = language_names(10)
+    train, train_labels = make_corpus(langs, 40 * len(langs), seed=1)
+    model = (LanguageDetector(langs, [1, 2, 3, 4, 5], 1000, device=str(dev))
+             .set_vocab_mode("exact")
+             .fit(Table({"lang": train_labels, "fulltext": train})))
+    runner10 = model.runner
+    if runner10.strategy != "hybrid":
+        fail(f"10-language exact n=1..5 should run hybrid, got {runner10.strategy!r}")
+    texts, _ = make_corpus(langs, 2000, seed=2)
+    texts += make_corpus(langs[:2], 2, mean_len=20000, seed=3)[0]
+    byte_docs = [t.encode() for t in texts]
+    reset_launches()
+    pred = model.transform(Table({"fulltext": texts})).column("lang").tolist()
+    torch.cuda.synchronize()
+    launches = read_launches()
+    say("kernel5", f"10 languages, exact n=1..5: strategy={runner10.strategy}, "
+        f"{len(texts)} docs, launches {launches}")
+    if launches["bigram_score"] <= 0 or launches["row_hist"] <= 0:
+        fail("the 10-language path never launched the bigram-score or row-histogram kernel")
+    idx = {l: i for i, l in enumerate(langs)}
+    ids = np.asarray([idx[l] for l in pred])
+    check_path(torch, SF, "kernel5", runner10, byte_docs, ids, model.profile, 500)
+
+    langs3 = language_names(3)
+    train, train_labels = make_corpus(langs3, 60 * len(langs3), seed=1)
+    c1 = (LanguageDetector(langs3, [2], 2000, device=str(dev)).set_vocab_mode("exact")
+          .fit(Table({"lang": train_labels, "fulltext": train})))
+    w, lut, cuckoo = c1.profile.device_membership(device=str(dev))
+    runner1 = BatchRunner(weights=w, lut=lut, cuckoo=cuckoo, spec=c1.profile.spec,
+                          device=str(dev), strategy="pallas")
+    texts, _ = make_corpus(langs3, 2000, seed=2)
+    byte_docs = [t.encode() for t in texts]
+    reset_launches()
+    ids = runner1.predict_ids(byte_docs)
+    torch.cuda.synchronize()
+    c1_launches = read_launches()
+    say("kernel5", f"config 1 (3 languages, exact bigrams, k=2000) strategy=pallas: "
+        f"{len(texts)} docs, launches {c1_launches}")
+    if c1_launches["bigram_score"] <= 0:
+        fail("config 1 with strategy='pallas' never launched the bigram-score kernel")
+    check_path(torch, SF, "kernel5", runner1, byte_docs, ids, c1.profile, 500)
+    return runner10, launches
+
+
+def _kernel_entry(name, source, replaces, launches, err, ms, plain_ms, bytes_, ops,
+                  library_ms) -> dict:
+    bytes_ms = bytes_ / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / F32_OPS_PER_S * 1e3
+    bound_ms, bound_by = max((bytes_ms, "bytes"), (ops_ms, "operations"))
+    say("times", f"{name}: {ms:.4f} ms; plain {plain_ms:.3f} ms; library {library_ms:.3f} ms; "
+        f"compulsory bytes {bytes_ / 1e6:.1f} MB -> {bytes_ms:.4f} ms, operations "
+        f"{ops / 1e9:.4f} G -> {ops_ms:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}); "
+        f"kernel at {bound_ms / ms:.1%} of its bound")
+    return {"name": name, "route": "cuda",
+            "source": f"spark_languagedetector_tpu_torch/csrc/{source}",
+            "replaces": replaces, "launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}
+
+
+def phase_times_hist(torch, dev, model, runner, runner10, eval_docs, launches3, launches10,
+                     errs) -> list[dict]:
+    """The three kernels at the config-3 runner's largest batch (bigram score
+    with the 10-language runner's weights), their plain versions, their
+    bounds and one library call each; then the end-to-end config-3
+    transform and the device's busy share."""
+    from spark_languagedetector_tpu_torch import Table
+    from spark_languagedetector_tpu_torch.ops import score_hist as SH
+    from spark_languagedetector_tpu_torch.ops import score_pallas as SP
+    from spark_languagedetector_tpu_torch.ops.encoding import pad_batch
+
+    byte_docs = [t.encode() for t in eval_docs]
+    sel, pad_to = max(runner.plan([len(d) for d in byte_docs]),
+                      key=lambda item: len(item[0]) * item[1])
+    batch, lengths = pad_batch([byte_docs[k] for k in sel], pad_to)
+    batch = torch.from_numpy(batch).to(dev)
+    lengths = torch.from_numpy(lengths).to(dev)
+    B, S = batch.shape
+    lim = torch.full((B,), S, dtype=torch.int32, device=dev)
+    doc = torch.arange(B, device=dev)[:, None]
+    say("times", f"config-3 batch: B={B} x S={S} (the runner's largest planned batch)")
+    out = []
+
+    # Kernel 3: the row histogram of the long lengths.
+    h = runner.hist_state
+    miss = h.weights_pad.shape[0] - 1
+    rows, vmax, W = SH.hist_rows_plane(
+        batch, lengths, miss, h.lut, h.bucket, spec=runner.spec, bucket_seed=h.seed,
+        bucket_kind=h.kind, gram_lengths_subset=runner.pallas_state.rest)
+    R = h.rhi * 256
+    got = SH.row_hist_kernel(rows, vmax, W, h.rhi, miss)
+    ref = SH.row_hist_plain(rows, vmax, W, h.rhi, miss)
+    if not torch.equal(got, ref):
+        fail("config-3 batch: row_hist counts differ from the plain version")
+    r = rows.long()
+    local = torch.arange(rows.shape[1], device=dev) % W
+    valid = (local[None, :] < vmax.long()[:, None]) & (r >= 0) & (r < R) & (r != miss)
+    idx3 = (doc * R + r)[valid]
+    out.append(_kernel_entry(
+        "row_hist", "row_hist.cu", "spark_languagedetector_tpu/ops/score_hist.py:67",
+        launches3["row_hist"], errs["row_hist"],
+        cuda_ms(torch, lambda: SH.row_hist_kernel(rows, vmax, W, h.rhi, miss), reps=20),
+        cuda_ms(torch, lambda: SH.row_hist_plain(rows, vmax, W, h.rhi, miss), reps=3,
+                warmup=1),
+        rows.numel() * 4 + B * 4 + B * R * 4, int(valid.sum()),
+        cuda_ms(torch, lambda: torch.bincount(idx3, minlength=B * R), reps=5, warmup=1)))
+
+    # Kernel 4: the bigram histogram.
+    got = SP.bigram_hist_kernel(batch, lengths, lim, 2)
+    ref = SP.bigram_hist_plain(batch, lengths, lim, 2)
+    if not torch.equal(got, ref):
+        fail("config-3 batch: bigram_hist counts differ from the plain version")
+    b0 = batch.long()
+    b1 = torch.nn.functional.pad(batch[:, 1:], (0, 1)).long()
+    s = torch.arange(S, device=dev)[None, :]
+    m2 = s <= lengths.long()[:, None] - 2
+    idx4 = (doc * 65536 + b0 * 256 + b1)[m2]
+    out.append(_kernel_entry(
+        "bigram_hist", "bigram_hist.cu",
+        "spark_languagedetector_tpu/ops/score_pallas.py:177",
+        launches3["bigram_hist"], errs["bigram_hist"],
+        cuda_ms(torch, lambda: SP.bigram_hist_kernel(batch, lengths, lim, 2), reps=20),
+        cuda_ms(torch, lambda: SP.bigram_hist_plain(batch, lengths, lim, 2), reps=3,
+                warmup=1),
+        B * S + B * 8 + B * 65536 * 4, int(m2.sum()),
+        cuda_ms(torch, lambda: torch.bincount(idx4, minlength=B * 65536), reps=5,
+                warmup=1)))
+
+    # Kernel 5: the bigram score, with the 10-language hybrid's weights.
+    st = runner10.pallas_state
+    L = st.w1.shape[1]
+    got = SP.bigram_score_kernel(batch, lengths, lim, st.w1, st.w2, True, True)
+    ref = SP.bigram_score_plain(batch, lengths, lim, st.w1, st.w2, True, True)
+    err5 = float((got - ref).abs().max())
+    if not torch.allclose(got, ref, atol=ATOL, rtol=RTOL):
+        fail(f"config-3 batch: bigram_score differs from the plain version ({err5:.3g})")
+    m1 = s <= lengths.long()[:, None] - 1
+    table = torch.cat([st.w2, st.w1])  # [65536 + 256, L]
+    bag = torch.cat([b0 * 256 + b1, 65536 + b0], dim=1)
+    bag_w = torch.cat([m2, m1], dim=1).to(torch.float32)
+    lib = lambda: torch.nn.functional.embedding_bag(  # noqa: E731
+        bag, table, mode="sum", per_sample_weights=bag_w)
+    lib_err = float((lib() - got).abs().max())
+    say("times", f"embedding_bag vs bigram_score: max abs err {lib_err:.3g}")
+    pairs2 = int(torch.unique(idx4).numel())
+    pairs1 = int(torch.unique((doc * 256 + b0)[m1]).numel())
+    touched = int(torch.unique((b0 * 256 + b1)[m2]).numel())
+    out.append(_kernel_entry(
+        "bigram_score", "bigram_score.cu",
+        "spark_languagedetector_tpu/ops/score_pallas.py:119",
+        launches10["bigram_score"], max(errs["bigram_score"], err5),
+        cuda_ms(torch, lambda: SP.bigram_score_kernel(batch, lengths, lim, st.w1, st.w2,
+                                                      True, True), reps=20),
+        cuda_ms(torch, lambda: SP.bigram_score_plain(batch, lengths, lim, st.w1, st.w2,
+                                                     True, True), reps=3, warmup=1),
+        B * S + B * 8 + (touched + 256) * L * 4 + B * L * 4, 2 * (pairs2 + pairs1) * L,
+        cuda_ms(torch, lib, reps=5, warmup=1)))
+    say("times", f"bigram_score at L={L}: {pairs2} distinct (doc, bigram) and {pairs1} "
+        f"distinct (doc, byte) pairs, {touched} w2 rows touched")
+
+    table = Table({"fulltext": eval_docs})
+    model.transform(table)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model.transform(table)
+    torch.cuda.synchronize()
+    e2e_s = time.perf_counter() - t0
+    say("times", f"end-to-end config-3 transform of {len(eval_docs)} docs: {e2e_s:.3f}s = "
+        f"{len(eval_docs) / e2e_s:.0f} docs/s (host clock, warm)")
+    device_breakdown(torch, lambda: model.transform(table), e2e_s * 1e3)
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--quick", action="store_true",
@@ -578,7 +977,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs the CUDA card")
     import spark_languagedetector_tpu_torch as port
-    from spark_languagedetector_tpu_torch.ops import score_fused as SF
+    from spark_languagedetector_tpu_torch.ops._kernels import KERNELS
 
     if Path(port.__file__).resolve().parent.parent != ROOT:
         fail(f"imported the port from {port.__file__}, not from this checkout")
@@ -588,13 +987,18 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
     smi_line = phase_device(torch)
-    phase_build([SF.FUSED_DETECT])
+    phase_build(KERNELS)
     kernel_err = phase_kernels(torch, dev)
+    hist_errs = phase_kernels_hist(torch, dev)
     if args.quick:
         say("done", f"quick run ok in {time.perf_counter() - t_start:.1f}s")
         return
     model, runner, quant_runners, eval_docs, launches = phase_main(torch, dev)
     c5_err, times = phase_times(torch, dev, model, runner, quant_runners, eval_docs)
+    model3, runner3, eval3, launches3 = phase_config3(torch, dev)
+    runner10, launches10 = phase_kernel5(torch, dev)
+    hist_entries = phase_times_hist(torch, dev, model3, runner3, runner10, eval3,
+                                    launches3, launches10, hist_errs)
     bad = [k for k in ("jax", "jaxlib", "spark_languagedetector_tpu") if k in sys.modules]
     if bad:
         fail(f"JAX modules were imported: {bad}")
@@ -608,7 +1012,7 @@ def main() -> None:
         "launches": launches,
         "max_abs_err": max(kernel_err, c5_err),
         **times,
-    }]}))
+    }] + hist_entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -14,10 +14,24 @@ Port of ``spark_languagedetector_tpu.api.runner.BatchRunner`` for the
 * in label mode the argmax runs on the device and only labels (plus the
   few score rows of chunked documents) are fetched.
 
-Strategies: ``"fused"`` (the default wherever ``fused_supported``; the CUDA
-kernel on the card, its plain version on the CPU) and ``"gather"`` (the
-row-gather reference, explicit only). A failure of the fused kernel raises;
-there is no fallback.
+Strategies, chosen by ``auto`` in this order (the JAX package's accelerator
+order; the choice does not depend on the device — on the CPU each strategy
+runs its kernels' plain versions):
+
+* ``"fused"``: dense and LUT profiles (the CUDA fused-detect kernel);
+* ``"pallas"``: exact vocabs with gram lengths ⊆ {1, 2} over the dense
+  table (bigram-score kernel up to 16 languages, bigram-histogram kernel and
+  a matmul beyond);
+* ``"hybrid"``: exact short-gram ids with longer grams (cuckoo profiles,
+  exact n = 1..5): lengths ≤ 2 through the pallas scorer over a dense
+  sub-table, the rest through ``hist`` (or the cuckoo/LUT gather when no
+  bucket table could be built);
+* ``"hist"``: compact-row membership (a bucket table from the cuckoo keys or
+  the LUT): the row-histogram kernel and a matmul;
+* ``"gather"``: the row-gather reference (dense, LUT or cuckoo), explicit
+  or when nothing above applies.
+
+A failure of a kernel raises; there is no fallback.
 """
 
 from __future__ import annotations
@@ -29,8 +43,10 @@ import numpy as np
 import torch
 
 from ..exec.core import plan_micro_batches, rows_under_byte_budget
+from ..ops import bucket as bucket_ops
+from ..ops import cuckoo as cuckoo_ops
 from ..ops import score as score_ops
-from ..ops import score_fused
+from ..ops import score_fused, score_hist, score_pallas
 from ..ops.encoding import (
     DEFAULT_LENGTH_BUCKETS,
     ENCODINGS,
@@ -39,16 +55,47 @@ from ..ops.encoding import (
     pad_batch,
     truncate_utf8,
 )
-from ..ops.vocab import VocabSpec
+from ..ops.vocab import EXACT, EXACT12, HASHED, VocabSpec
 from ..utils.device import resolve_device
 
 DEFAULT_BATCH_SIZE = 256
-# The fused kernel keeps per-document state on chip (no O(B·vocab) buffers),
-# so it takes much larger micro-batches.
+# The fused and pallas kernels keep per-document state on chip (no
+# O(B·vocab) buffers), so they take much larger micro-batches.
 DEFAULT_FUSED_BATCH_SIZE = 4096
+# Hybrid and hist micro-batches (the JAX runner's sizes): the histograms are
+# [B, 65536] and [B, Rhi·256] float32 buffers, and gram lengths ≥ 4 (three
+# long-gram membership passes per document) take the smaller batch.
+DEFAULT_HYBRID_BATCH_SIZE = 4096
+DEFAULT_HEAVY_BATCH_SIZE = 1024
 # Cap on one micro-batch's padded bytes.
 MAX_BATCH_BYTES = 8 << 20
-STRATEGIES = ("auto", "fused", "gather")
+STRATEGIES = ("auto", "fused", "pallas", "hybrid", "hist", "gather")
+
+
+@dataclass(frozen=True)
+class HistState:
+    """Row-histogram operands: the padded weight table (float64, for the
+    contraction), Rhi, and the membership — a bucket table (``kind``
+    'exact' for packed gram keys, 'hashed' for window ids) or, when
+    ``bucket`` is None, the id→row LUT."""
+
+    weights_pad: torch.Tensor
+    rhi: int
+    bucket: torch.Tensor | None
+    seed: int
+    kind: str
+    lut: torch.Tensor | None
+
+
+@dataclass(frozen=True)
+class PallasState:
+    """Bigram-scorer operands: the exact sub-spec of lengths ≤ 2, its
+    weight views, and the lengths left for the long-gram part (hybrid)."""
+
+    spec: VocabSpec
+    w1: torch.Tensor
+    w2: torch.Tensor
+    rest: tuple[int, ...]
 
 
 @dataclass
@@ -56,17 +103,21 @@ class BatchRunner:
     """Scores document collections through fixed-shape micro-batches on one
     device. One runner per (profile, configuration); reuse it across calls.
 
-    ``weights`` / ``lut`` are the profile's membership arrays
-    (``GramProfile.host_membership``, numpy or tensors). ``device`` None
-    means the CUDA card and raises when there is none. After construction
-    ``table`` / ``scales`` / ``table_lut`` hold the strategy's device
-    operands (for ``fused``, the :func:`~..ops.score_fused.build_fused_tables`
-    layout in ``layout``).
+    ``weights`` / ``lut`` / ``cuckoo`` are the profile's membership
+    (``GramProfile.device_membership``; arrays may be numpy or tensors).
+    ``device`` None means the CUDA card and raises when there is none. After
+    construction the strategy's device operands are built once: for
+    ``fused``, ``table`` / ``scales`` / ``table_lut`` in the
+    :func:`~..ops.score_fused.build_fused_tables` layout ``layout``; for the
+    bigram strategies ``pallas_state``; for the row histogram ``hist_state``
+    (None where the hybrid's long grams gather instead); for gathers
+    ``table`` / ``table_lut`` and the cuckoo entries.
     """
 
     weights: object
     lut: object | None
     spec: VocabSpec
+    cuckoo: cuckoo_ops.CuckooTable | None = None
     device: object | None = None
     batch_size: int | None = None  # None ⇒ by strategy
     length_buckets: tuple[int, ...] = DEFAULT_LENGTH_BUCKETS
@@ -103,50 +154,185 @@ class BatchRunner:
         lut = None if self.lut is None else np.asarray(torch.as_tensor(self.lut).cpu())
         if lut is not None and lut.size == 0:
             lut = None
+        if lut is not None and self.cuckoo is not None:
+            raise ValueError("pass a LUT or a cuckoo table for membership, not both")
         self.num_langs = w.shape[1]
         fused_ok = score_fused.fused_supported(
-            self.spec, w.shape[0], w.shape[1], lut=lut, cuckoo=None
+            self.spec, w.shape[0], w.shape[1], lut=lut, cuckoo=self.cuckoo
         )
+        pallas_ok = (
+            lut is None
+            and self.cuckoo is None
+            and score_pallas.pallas_supported(self.spec, w.shape[0], w.shape[1])
+        )
+        hybrid_ok = self._hybrid_supported()
+        self.hist_state = None
         if self.strategy == "auto":
-            if not fused_ok:
-                raise NotImplementedError(
-                    "this profile form (cuckoo membership) has no strategy "
-                    "in the PyTorch port yet"
-                )
-            self.strategy = "fused"
-            self.strategy_reason = "dense/LUT membership ⇒ fused kernel"
+            self.strategy, self.strategy_reason = self._auto_select(
+                w, lut, fused_ok, pallas_ok, hybrid_ok
+            )
         else:
             self.strategy_reason = "explicit"
-        if self.strategy == "fused":
+        if self.strategy in ("hybrid", "hist") and self.hist_state is None:
+            self.hist_state = self._build_hist_state(w, lut)
+        for name, ok, need in (
+            ("fused", fused_ok, "dense or LUT membership (exact gram lengths "
+             "<= 3, or a hashed vocab); cuckoo profiles use hybrid/hist"),
+            ("pallas", pallas_ok, "an exact vocab with gram lengths <= 2 and "
+             "the dense weight table"),
+            ("hybrid", hybrid_ok, "exact short-gram ids (exact vocab or hashed "
+             "'exact12' scheme) with gram lengths both <= 2 and > 2"),
+            ("hist", self.hist_state is not None, "compact-row membership (a "
+             "cuckoo table whose bucket build succeeds, or an id->row LUT)"),
+        ):
+            if self.strategy == name and not ok:
+                raise ValueError(f"strategy={name!r} needs {need}")
+        self._build_operands(w, lut)
+        if self.batch_size is None:
+            if self.strategy in ("fused", "pallas"):
+                self.batch_size = DEFAULT_FUSED_BATCH_SIZE
+            elif self.strategy in ("hybrid", "hist"):
+                heavy = any(n >= 4 for n in self.spec.gram_lengths)
+                self.batch_size = (
+                    DEFAULT_HEAVY_BATCH_SIZE if heavy else DEFAULT_HYBRID_BATCH_SIZE
+                )
+            else:
+                self.batch_size = DEFAULT_BATCH_SIZE
+
+    # -- strategy selection and operands ---------------------------------------
+    def _hybrid_supported(self) -> bool:
+        """Gram lengths both ≤ 2 and > 2 whose short-gram ids are exact
+        polynomial ids: exact vocabs, and hashed vocabs under ``exact12``
+        (whose buckets [0, 65792) are exactly the short-gram ids)."""
+        glens = self.spec.gram_lengths
+        ids_exact12 = self.spec.mode == EXACT or (
+            self.spec.mode == HASHED and self.spec.hash_scheme == EXACT12
+        )
+        return ids_exact12 and min(glens) <= 2 < max(glens)
+
+    def _auto_select(self, w, lut, fused_ok, pallas_ok, hybrid_ok) -> tuple[str, str]:
+        """(strategy, reason) for strategy='auto': fused → pallas → hybrid →
+        hist → gather, whatever the device. Deciding on hist builds its
+        operands (``hist_state``)."""
+        if self.quantization is not None:
             if not fused_ok:
                 raise ValueError(
-                    "strategy='fused' needs dense or LUT membership (exact "
-                    "gram lengths <= 3, or a hashed vocab)"
+                    "quantization needs the fused strategy, which does not "
+                    "support this profile form (cuckoo membership)"
                 )
+            return "fused", "quantization requested ⇒ fused table"
+        if fused_ok:
+            return "fused", "dense/LUT membership ⇒ fused kernel"
+        if pallas_ok:
+            return "pallas", "exact short-gram dense table ⇒ bigram kernels"
+        if hybrid_ok:
+            return "hybrid", (
+                "exact short-gram ids with long grams ⇒ bigram kernels for "
+                "n <= 2, row histogram (or gather) for the rest"
+            )
+        self.hist_state = self._build_hist_state(w, lut)
+        if self.hist_state is not None:
+            return "hist", "compact-row membership ⇒ row-histogram kernel"
+        return "gather", "no kernel strategy covers this profile form"
+
+    def _build_hist_state(self, w: np.ndarray, lut: np.ndarray | None) -> HistState | None:
+        """Row-histogram operands, or None where the strategy cannot apply
+        (no compact membership, or a cuckoo profile whose bucket build found
+        no zero-overflow seed). The bucket table comes from the cuckoo keys
+        (packed-key slots) or from the LUT's learned ids (id slots); when a
+        LUT's bucket build fails the LUT itself is the membership."""
+        if self.cuckoo is not None:
+            table = bucket_ops.build_buckets_exact(
+                self.cuckoo.keys_lo[:-1], self.cuckoo.keys_hi[:-1]
+            )
+            if table is None:
+                return None
+        elif lut is not None:
+            ids = np.flatnonzero(lut != w.shape[0] - 1).astype(np.int32)
+            table = bucket_ops.build_buckets_hashed(ids, lut[ids])
+        else:
+            return None
+        wp, rhi = score_hist.pad_weights(w)
+        dev = self.device
+        return HistState(
+            weights_pad=torch.from_numpy(wp).to(dev, torch.float64),
+            rhi=rhi,
+            bucket=None if table is None else torch.from_numpy(table.rows).to(dev),
+            seed=0 if table is None else table.seed,
+            kind="hashed" if table is None else table.kind,
+            lut=torch.from_numpy(lut).to(dev) if table is None else None,
+        )
+
+    def _build_pallas_state(self, w: np.ndarray, lut: np.ndarray | None) -> PallasState:
+        """Bigram-scorer operands on the device. For ``pallas`` the whole
+        dense table; for ``hybrid`` the dense sub-table of lengths ≤ 2,
+        gathered once from the profile through the cuckoo table (every 1- and
+        2-gram key looked up on the host), the LUT, or the dense table's
+        first rows (the exact id layout stacks lengths ascending, so the
+        sub-spec's ids are the full spec's first rows)."""
+        if self.strategy == "pallas":
+            table = torch.from_numpy(w).to(self.device)
+            return PallasState(self.spec, *score_pallas.weight_views(table, self.spec), rest=())
+        sub = tuple(n for n in self.spec.gram_lengths if n <= 2)
+        rest = tuple(n for n in self.spec.gram_lengths if n > 2)
+        spec12 = VocabSpec(EXACT, sub)
+        V12 = spec12.id_space_size
+        if self.cuckoo is not None:
+            v = np.arange(256, dtype=np.uint32)
+            a = np.repeat(v, 256)
+            b = np.tile(v, 256)
+            lo = np.concatenate([v << 24, (a << 24) | (b << 16)]).astype(np.int32)
+            hi = np.concatenate(
+                [np.full(256, 1 << 8, np.int32), np.full(65536, 2 << 8, np.int32)]
+            )
+            rows = cuckoo_ops.lookup_numpy(self.cuckoo, lo, hi)[:V12]
+        elif lut is not None:
+            rows = lut[:V12]
+        else:
+            rows = np.arange(V12)
+        table = torch.from_numpy(w[rows]).to(self.device)
+        return PallasState(spec12, *score_pallas.weight_views(table, spec12), rest=rest)
+
+    def _build_operands(self, w: np.ndarray, lut: np.ndarray | None) -> None:
+        """Upload what the strategy reads, once."""
+        dev = self.device
+        self.layout = self.scales = self.table = self.table_lut = None
+        self.pallas_state = None
+        self._cuckoo_entries = None
+        if self.strategy == "fused":
             ft = score_fused.build_fused_tables(w, lut, self.spec, self.quantization)
             self.layout = ft.layout
             self._table_bytes = ft.table_bytes
-            self.table = torch.from_numpy(ft.wq).to(self.device)
-            self.scales = torch.from_numpy(ft.scales).to(self.device)
-            self.table_lut = None if ft.lut is None else torch.from_numpy(ft.lut).to(self.device)
-        else:
-            self.layout = None
-            self._table_bytes = w.nbytes + (0 if lut is None else lut.nbytes)
-            self.table = torch.from_numpy(w).to(self.device)
-            self.scales = None
-            self.table_lut = None if lut is None else torch.from_numpy(lut).to(self.device)
-        if self.batch_size is None:
-            self.batch_size = (
-                DEFAULT_FUSED_BATCH_SIZE if self.strategy == "fused"
-                else DEFAULT_BATCH_SIZE
-            )
+            self.table = torch.from_numpy(ft.wq).to(dev)
+            self.scales = torch.from_numpy(ft.scales).to(dev)
+            self.table_lut = None if ft.lut is None else torch.from_numpy(ft.lut).to(dev)
+            return
+        held = []
+        if self.strategy in ("pallas", "hybrid"):
+            self.pallas_state = self._build_pallas_state(w, lut)
+            held += [self.pallas_state.w1, self.pallas_state.w2]
+        if self.hist_state is not None:
+            held += [
+                t for t in (self.hist_state.weights_pad, self.hist_state.bucket,
+                            self.hist_state.lut) if t is not None
+            ]
+        elif self.strategy in ("hybrid", "gather"):
+            self.table = torch.from_numpy(w).to(dev)
+            held.append(self.table)
+            if self.cuckoo is not None:
+                self._cuckoo_entries = torch.from_numpy(self.cuckoo.entries()).to(dev)
+                held.append(self._cuckoo_entries)
+            elif lut is not None:
+                self.table_lut = torch.from_numpy(lut).to(dev)
+                held.append(self.table_lut)
+        self._table_bytes = sum(t.numel() * t.element_size() for t in held)
 
     @property
     def max_chunk(self) -> int:
         return self.length_buckets[-1]
 
     def table_bytes(self) -> int:
-        """Device bytes of the active strategy's table (and LUT for gather)."""
+        """Device bytes of the active strategy's tables and membership."""
         return int(self._table_bytes)
 
     def plan(self, sizes: Sequence[int]) -> list[tuple[np.ndarray, int]]:
@@ -177,9 +363,41 @@ class BatchRunner:
                 batch, lengths, self.table, self.scales, self.table_lut, window_limit,
                 spec=self.spec, layout=self.layout,
             )
+        if self.strategy in ("pallas", "hybrid"):
+            # Lengths ≤ 2 through the bigram kernels; a hybrid's longer
+            # lengths through the row histogram or the gather. Each part
+            # applies its own lengths' partial-window rules, so the sum is
+            # exact.
+            st = self.pallas_state
+            short = score_pallas.score_batch_pallas(
+                batch, lengths, st.w1, st.w2, window_limit, spec=st.spec
+            )
+            if not st.rest:
+                return short
+            return short + self._long_scores(batch, lengths, window_limit, st.rest)
+        return self._long_scores(batch, lengths, window_limit, None)
+
+    def _long_scores(self, batch, lengths, window_limit, subset) -> torch.Tensor:
+        """Row-histogram scores where the runner has the operands, else the
+        gather (cuckoo, LUT or dense) — the hybrid's long-gram route when no
+        bucket table could be built, and the explicit ``gather``."""
+        h = self.hist_state
+        if h is not None:
+            return score_hist.score_batch_hist(
+                batch, lengths, h.weights_pad, h.lut, h.bucket, window_limit,
+                spec=self.spec, rhi=h.rhi, bucket_seed=h.seed, bucket_kind=h.kind,
+                gram_lengths_subset=subset,
+            )
+        block = self.block if subset is None else min(self.block, 256)
+        if self.cuckoo is not None:
+            return score_ops.score_batch_cuckoo(
+                batch, lengths, self.table, self._cuckoo_entries,
+                seed1=self.cuckoo.seed1, seed2=self.cuckoo.seed2, spec=self.spec,
+                block=block, window_limit=window_limit, gram_lengths_subset=subset,
+            )
         return score_ops.score_batch(
             batch, lengths, self.table, self.table_lut, spec=self.spec,
-            block=self.block, window_limit=window_limit,
+            block=block, window_limit=window_limit, gram_lengths_subset=subset,
         )
 
     def _labels(self, batch, lengths, window_limit) -> torch.Tensor:

@@ -10,7 +10,10 @@ arrays and needs no import of that package here::
         p.languages, p.ids, p.weights, device="cuda",
     )
 
-Both packages then score the same profile with the same semantics.
+Both packages then score the same profile with the same semantics. An exact
+profile with gram lengths 4..5 crosses the same way: its runner rebuilds the
+cuckoo table, the bucket table and the dense n <= 2 sub-table from the ids
+and weights, bit-identical to the JAX runner's (same seed streams).
 """
 
 from __future__ import annotations

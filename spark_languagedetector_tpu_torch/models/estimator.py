@@ -3,9 +3,11 @@
 Port of ``spark_languagedetector_tpu.models.estimator`` in label mode: the
 reference's Spark ML pair with the same Params, defaults and validation
 messages (``inputCol="fulltext"``, ``labelCol``/``outputCol="lang"``). Fit
-builds a columnar :class:`GramProfile` with the host numpy fit; transform
-ships micro-batches through :class:`~..api.runner.BatchRunner`, whose fused
-CUDA kernel labels documents on the card.
+builds a columnar :class:`GramProfile` with the host numpy fit (exact gram
+lengths up to 5, or hashed); transform ships micro-batches through
+:class:`~..api.runner.BatchRunner`, whose CUDA kernels label documents on the
+card (the fused kernel for dense and LUT profiles; the bigram and
+row-histogram kernels of the hybrid strategy for exact n = 4..5 profiles).
 
 Where the JAX package had a ``backend`` switch, the port has ``device``:
 None means the CUDA card (and raises when there is none); ``"cpu"`` runs
@@ -420,10 +422,13 @@ class LanguageDetectorModel(HasInputCol, HasOutputCol, _ResultModeParams, _Devic
     def runner(self) -> BatchRunner:
         """The model's runner, built on first use (uploads the fused table)."""
         if self._runner is None:
-            weights, lut = self.profile.host_membership()
+            # Host tensors of the profile's device view (dense table, LUT or
+            # cuckoo table); the runner uploads what its strategy reads.
+            weights, lut, cuckoo = self.profile.device_membership(device="cpu")
             self._runner = BatchRunner(
                 weights=weights,
                 lut=lut,
+                cuckoo=cuckoo,
                 spec=self.profile.spec,
                 device=self.get("device"),
                 batch_size=self.get("batchSize"),

@@ -9,8 +9,8 @@ resolved by tables:
   directly;
 * otherwise an int32 ``[id_space]`` lookup table maps ids to rows of a
   compact ``[G+1, L]`` table whose row G is the zeros miss row;
-* exact gram lengths 4..5 need packed-key cuckoo membership, which a later
-  slice of the port brings over.
+* exact gram lengths 4..5 overflow int32 ids, so membership is a cuckoo
+  table over packed gram keys (:meth:`GramProfile.device_membership`).
 """
 
 from __future__ import annotations
@@ -20,7 +20,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..ops.vocab import EXACT, HASHED, MAX_DEVICE_ID_GRAM_LEN, VocabSpec
+from ..ops.cuckoo import CuckooTable, build_cuckoo
+from ..ops.vocab import EXACT, HASHED, MAX_DEVICE_ID_GRAM_LEN, VocabSpec, gram_key
 from ..utils.debug import assert_finite
 from ..utils.device import resolve_device
 
@@ -37,13 +38,6 @@ QUANT_DTYPES: dict[str, tuple[str, int]] = {
     "int8": ("int8", 127),
     "int16": ("int16", 32767),
 }
-
-_CUCKOO_LATER = (
-    "exact gram lengths > 3 need packed-key cuckoo membership, which a "
-    "later slice of the PyTorch port brings over; use vocabMode='hashed' "
-    "or gram lengths <= 3"
-)
-
 
 def quantize_weights(
     weights: np.ndarray, dtype: str
@@ -113,6 +107,15 @@ class GramProfile:
         assert_finite(self.weights, "profile weights")
 
     @property
+    def needs_cuckoo(self) -> bool:
+        """True for exact vocabs with gram lengths > 3, whose ids overflow
+        int32 and have no dense or LUT device form."""
+        return (
+            self.spec.mode == EXACT
+            and max(self.spec.gram_lengths) > MAX_DEVICE_ID_GRAM_LEN
+        )
+
+    @property
     def is_dense(self) -> bool:
         """True for the dense hashed bucket-table form."""
         return (
@@ -159,11 +162,12 @@ class GramProfile:
         fits ``dense_budget_bytes`` (and is not grossly larger than the
         compact form); else the LUT maps every id to a compact row, misses
         to the zeros row G."""
-        if (
-            self.spec.mode == EXACT
-            and max(self.spec.gram_lengths) > MAX_DEVICE_ID_GRAM_LEN
-        ):
-            raise NotImplementedError(_CUCKOO_LATER)
+        if self.needs_cuckoo:
+            raise ValueError(
+                "exact gram lengths > 3 have no dense/LUT form (the id space "
+                "exceeds int32); use device_membership(), whose cuckoo table "
+                "handles them"
+            )
         L = self.num_languages
         V = self.spec.id_space_size
         dense_bytes = V * L * 4
@@ -201,12 +205,28 @@ class GramProfile:
         self,
         device=None,
         dense_budget_bytes: int = DENSE_TABLE_BUDGET_BYTES,
-    ):
-        """(weights, lut, cuckoo) — the general device view. Cuckoo
-        membership (exact gram lengths 4..5) is a later slice, so ``cuckoo``
-        is always None and such profiles raise NotImplementedError."""
-        w, lut = self.device_arrays(device, dense_budget_bytes)
-        return w, lut, None
+    ) -> tuple[torch.Tensor, torch.Tensor | None, CuckooTable | None]:
+        """(weights, lut, cuckoo) — the general device view, tensors on
+        ``device`` (None ⇒ the CUDA card).
+
+        Exact vocabs with gram lengths > 3 ship the compact weights plus the
+        zeros miss row G and a host-built cuckoo table over the grams'
+        packed keys (``lut`` None); every other form is
+        :meth:`device_arrays` with ``cuckoo`` None.
+        """
+        if not self.needs_cuckoo:
+            w, lut = self.device_arrays(device, dense_budget_bytes)
+            return w, lut, None
+        dev = resolve_device(device)
+        keys = [gram_key(self.spec.id_to_gram(int(i))) for i in self.ids]
+        table = build_cuckoo(
+            np.asarray([k[0] for k in keys], dtype=np.int32),
+            np.asarray([k[1] for k in keys], dtype=np.int32),
+        )
+        w = np.concatenate(
+            [self.weights, np.zeros((1, self.num_languages), self.weights.dtype)]
+        ).astype(np.float32)
+        return torch.from_numpy(w).to(dev), None, table
 
     def host_arrays(self) -> tuple[np.ndarray, np.ndarray | None]:
         """(weights, sorted_ids) for ``ops.score.score_batch_numpy``: compact

@@ -121,11 +121,56 @@ class CudaKernel:
         self.launches += 1
 
 
-def build_all(kernels, *, force: bool = False) -> dict[str, tuple[float, str]]:
-    """Compile the kernels' sources, one ``nvcc`` process per source, all
-    running at once. Returns (seconds, compiler output) per kernel built;
-    raises with the compiler's output if any build fails. Already-built
-    libraries are skipped unless ``force``."""
+def check_operand(kernel: str, t, name: str, dtype, ndim: int, device) -> None:
+    """Raise unless ``t`` is a contiguous ``ndim``-D ``dtype`` tensor on
+    ``device`` (what a kernel's C entry point assumes of every operand)."""
+    if t.device != device:
+        raise ValueError(f"{kernel}: {name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{kernel}: {name} has dtype {t.dtype}, expected {dtype}")
+    if t.dim() != ndim:
+        raise ValueError(f"{kernel}: {name} has shape {tuple(t.shape)}, expected {ndim}-D")
+    if not t.is_contiguous():
+        raise ValueError(f"{kernel}: {name} must be contiguous")
+
+
+_p = ctypes.c_void_p
+_i = ctypes.c_int
+
+# Every kernel of the port. Each C entry point takes device pointers, sizes
+# and the stream, launches, and returns cudaGetLastError().
+FUSED_DETECT = CudaKernel(
+    "fused_detect",
+    "fused_detect.cu",
+    "fused_detect_launch",
+    [_p] * 10 + [_i] * 8 + [ctypes.POINTER(_i)] * 2
+    + [ctypes.POINTER(ctypes.c_uint)] * 2 + [_p],
+    _i,
+)
+# rows, vmax, out; B, K, W, R, miss; stream
+ROW_HIST = CudaKernel(
+    "row_hist", "row_hist.cu", "row_hist_launch", [_p] * 3 + [_i] * 5 + [_p], _i
+)
+# batch, lengths, lim, out; B, S, mask_n; stream
+BIGRAM_HIST = CudaKernel(
+    "bigram_hist", "bigram_hist.cu", "bigram_hist_launch",
+    [_p] * 4 + [_i] * 3 + [_p], _i,
+)
+# batch, lengths, lim, w1, w2, out; B, S, L, has1, has2; stream
+BIGRAM_SCORE = CudaKernel(
+    "bigram_score", "bigram_score.cu", "bigram_score_launch",
+    [_p] * 6 + [_i] * 5 + [_p], _i,
+)
+KERNELS = (FUSED_DETECT, ROW_HIST, BIGRAM_HIST, BIGRAM_SCORE)
+
+
+def build_all(
+    kernels=KERNELS, *, force: bool = False
+) -> dict[str, tuple[float, str]]:
+    """Compile the kernels' sources (by default every kernel of the port),
+    one ``nvcc`` process per source, all running at once. Returns (seconds,
+    compiler output) per kernel built; raises with the compiler's output if
+    any build fails. Already-built libraries are skipped unless ``force``."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = []
     for k in kernels:

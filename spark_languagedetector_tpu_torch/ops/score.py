@@ -6,7 +6,10 @@ explicit ``strategy="gather"`` of the runner and the tests' reference.
 * dense (``lut`` None): the weight table covers the whole id space and
   window ids index it directly;
 * LUT (``lut`` int32 ``[V]``): ids map to rows of a compact ``[G+1, L]``
-  table whose row G is the zeros miss row.
+  table whose row G is the zeros miss row;
+* cuckoo (:func:`score_batch_cuckoo`): exact gram lengths 4..5 overflow
+  int32 ids, so windows become packed ``(lo, hi)`` keys resolved by two
+  verified probes of the cuckoo table (``ops.cuckoo``).
 
 Semantics: unknown grams contribute zero; an all-miss document scores all
 zeros and its argmax is index 0; ties go to the lowest index; a document
@@ -20,7 +23,17 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .vocab import VocabSpec, partial_window_ids, short_doc_ids_numpy, window_ids, window_ids_numpy
+from .vocab import (
+    EXACT,
+    VocabSpec,
+    mix32_torch,
+    partial_window_ids,
+    partial_window_keys,
+    short_doc_ids_numpy,
+    window_ids,
+    window_ids_numpy,
+    window_keys,
+)
 
 # Window-axis block of the gather sum.
 DEFAULT_BLOCK = 1024
@@ -92,6 +105,7 @@ def score_batch(
     spec: VocabSpec,
     block: int = DEFAULT_BLOCK,
     window_limit: torch.Tensor | None = None,
+    gram_lengths_subset: tuple[int, ...] | None = None,
 ) -> torch.Tensor:
     """Scores for a padded batch (gather strategy).
 
@@ -103,6 +117,8 @@ def score_batch(
       lut: optional int32 [V] id→row table; unlearned ids map to row G.
       window_limit: optional int [B] — row i only counts window starts
         < window_limit[i] (long-document chunk ownership). None ⇒ no limit.
+      gram_lengths_subset: optional subset of ``spec.gram_lengths`` to score
+        (the hybrid strategy scores its long lengths here).
 
     Returns float32 [B, L].
     """
@@ -111,7 +127,7 @@ def score_batch(
     total = torch.zeros(
         (B, weights.shape[1]), dtype=torch.float32, device=batch.device
     )
-    for n in spec.gram_lengths:
+    for n in spec.gram_lengths if gram_lengths_subset is None else gram_lengths_subset:
         ids = window_ids(batch, n, spec)  # [B, W]
         rows = ids if lut is None else lut[ids].long()
         partial_rows = _partial_window_rows(
@@ -120,6 +136,68 @@ def score_batch(
         rows, mask = _splice_partial_windows(
             rows, partial_rows, lengths, n, window_limit
         )
+        total += _block_accumulate(weights, rows, mask, block)
+    return total
+
+
+def _cuckoo_rows(
+    lo: torch.Tensor,
+    hi: torch.Tensor,
+    entries: torch.Tensor,
+    miss_row: int,
+    seed1: int,
+    seed2: int,
+) -> torch.Tensor:
+    """Two-probe verified lookup: packed keys → compact weight rows (int64),
+    or the miss row G. ``entries`` is the int32 [M, 4] table
+    (``CuckooTable.entries``); M is a power of two, so ``% M`` is a mask."""
+    M = entries.shape[0]
+    e1 = entries[mix32_torch(lo, hi, seed1) & (M - 1)]
+    e2 = entries[mix32_torch(lo, hi, seed2) & (M - 1)]
+    hit1 = (e1[..., 0] == lo) & (e1[..., 1] == hi)
+    hit2 = (e2[..., 0] == lo) & (e2[..., 1] == hi)
+    return torch.where(
+        hit1, e1[..., 2], torch.where(hit2, e2[..., 2], miss_row)
+    ).long()
+
+
+def score_batch_cuckoo(
+    batch: torch.Tensor,
+    lengths: torch.Tensor,
+    weights: torch.Tensor,
+    entries: torch.Tensor,
+    *,
+    seed1: int,
+    seed2: int,
+    spec: VocabSpec,
+    block: int = DEFAULT_BLOCK,
+    window_limit: torch.Tensor | None = None,
+    gram_lengths_subset: tuple[int, ...] | None = None,
+) -> torch.Tensor:
+    """Scores via cuckoo membership (exact vocabs with gram lengths 4..5).
+
+    Same contract as :func:`score_batch` (masking, partial-window rule,
+    ``window_limit``, subset); membership is resolved by packed-key lookups
+    into ``entries`` instead of integer ids. ``weights`` is the compact
+    [G+1, L] table with the zeros miss row at G.
+    """
+    if spec.mode != EXACT:
+        raise ValueError(
+            "score_batch_cuckoo needs an exact vocab spec — hashed specs "
+            "use integer-id scoring (score_batch), not packed-key membership"
+        )
+    B = batch.shape[0]
+    G = weights.shape[0] - 1
+    total = torch.zeros(
+        (B, weights.shape[1]), dtype=torch.float32, device=batch.device
+    )
+    for n in spec.gram_lengths if gram_lengths_subset is None else gram_lengths_subset:
+        lo, hi = window_keys(batch, n)
+        rows = _cuckoo_rows(lo, hi, entries, G, seed1, seed2)
+        plo, phi = partial_window_keys(batch, lengths, n)
+        prows = _cuckoo_rows(plo, phi, entries, G, seed1, seed2)
+        prows = torch.where(lengths > 0, prows, G)
+        rows, mask = _splice_partial_windows(rows, prows, lengths, n, window_limit)
         total += _block_accumulate(weights, rows, mask, block)
     return total
 

@@ -36,7 +36,7 @@ import numpy as np
 import torch
 
 from ..models.profile import QUANT_DTYPES, quantize_weights
-from ._kernels import CudaKernel
+from ._kernels import FUSED_DETECT, check_operand
 from .score import _splice_partial_windows
 from .vocab import (
     _EXACT12_BASE,
@@ -60,17 +60,6 @@ _TORCH_DTYPE = {None: torch.float32, "int16": torch.int16, "int8": torch.int8}
 
 _MAX_INLINE = 8  # csrc/fused_detect.cu kMaxInline
 _MAX_LANGS = 4096  # 1024 threads x 4 columns per thread
-
-_p = ctypes.c_void_p
-_i = ctypes.c_int
-FUSED_DETECT = CudaKernel(
-    "fused_detect",
-    "fused_detect.cu",
-    "fused_detect_launch",
-    [_p] * 10 + [_i] * 8 + [ctypes.POINTER(_i)] * 2
-    + [ctypes.POINTER(ctypes.c_uint)] * 2 + [_p],
-    _i,
-)
 
 
 @dataclass(frozen=True)
@@ -386,14 +375,7 @@ def fused_plain(
 
 
 def _check(t: torch.Tensor, name: str, dtype, ndim: int, device) -> None:
-    if t.device != device:
-        raise ValueError(f"fused kernel: {name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise ValueError(f"fused kernel: {name} has dtype {t.dtype}, expected {dtype}")
-    if t.dim() != ndim:
-        raise ValueError(f"fused kernel: {name} has shape {tuple(t.shape)}, expected {ndim}-D")
-    if not t.is_contiguous():
-        raise ValueError(f"fused kernel: {name} must be contiguous")
+    check_operand("fused kernel", t, name, dtype, ndim, device)
 
 
 def fused_kernel(

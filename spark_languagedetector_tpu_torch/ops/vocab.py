@@ -6,8 +6,9 @@ semantics and is kept bit for bit):
 - **EXACT** mode: a gram of length n maps bijectively to
   ``offset(n) + poly(bytes)`` (big-endian base-256 polynomial; the id spaces
   of lengths 1..max stack disjointly). Device ids exist for lengths ≤ 3;
-  exact lengths 4..5 need packed keys and cuckoo membership, which a later
-  slice of the port brings over.
+  exact lengths 4..5 overflow int32 ids, so on the device they become packed
+  ``(lo, hi)`` int32 keys (:func:`window_keys`) resolved by cuckoo or bucket
+  membership (``ops/cuckoo.py``, ``ops/bucket.py``).
 - **HASHED** mode: window bytes fold into ``2**bits`` buckets, either with
   FNV-1a over every length (``fnv1a``) or with the ``exact12`` scheme, where
   grams of length ≤ 2 keep their exact polynomial ids in ``[0, 65792)`` and
@@ -16,7 +17,9 @@ semantics and is kept bit for bit):
 Host ids are vectorized numpy; device ids are torch. Torch's ``uint32`` is
 only partly supported, so the device FNV-1a runs in ``int64`` masked to 32
 bits after every multiply — the product of a 32-bit hash and the 25-bit FNV
-prime fits in 57 bits, so no step ever overflows.
+prime fits in 57 bits, so no step ever overflows. ``mix32``'s constants are
+near 2^32, so :func:`mix32_torch` splits each multiply into 16-bit halves
+(every product stays under 2^49).
 """
 
 from __future__ import annotations
@@ -236,8 +239,8 @@ def window_ids(batch: torch.Tensor, n: int, spec: VocabSpec) -> torch.Tensor:
         if spec.mode == EXACT and n > MAX_DEVICE_ID_GRAM_LEN:
             raise ValueError(
                 f"exact {n}-gram ids overflow int32; device membership for "
-                "gram lengths > 3 goes through packed keys and the cuckoo "
-                "scorer, which a later slice of the port brings over"
+                "gram lengths > 3 goes through packed keys (window_keys) and "
+                "cuckoo or bucket lookups"
             )
         ids = torch.zeros_like(planes[0])
         for p in planes:
@@ -304,6 +307,128 @@ def partial_window_ids(
     prefixes = prefix_hashes(batch, n - 1, spec)
     len_c = lengths.long().clamp(0, n - 1)
     return prefixes.gather(1, len_c[:, None])[:, 0]
+
+
+# --- packed gram keys (device membership for exact gram lengths > 3) --------
+#
+# A gram of length n <= 5 packs bijectively into two int32 halves:
+#   lo = first four bytes big-endian (missing bytes are zero)
+#   hi = fifth byte | (n << 8)
+# The length tag in ``hi`` keeps different-length prefixes distinct (b"ab\0"
+# vs b"ab"). ``lo`` is the wrapped int32 (two's complement) of the 32-bit
+# big-endian value; the torch versions compute it in int64 and fold it
+# explicitly.
+
+_INT32_WRAP = 1 << 32
+
+
+def _fold_int32(v: torch.Tensor) -> torch.Tensor:
+    """int64 values in [0, 2^32) → the int32 with the same 32 bits."""
+    return torch.where(v >= (1 << 31), v - _INT32_WRAP, v).to(torch.int32)
+
+
+def gram_key(gram: bytes) -> tuple[int, int]:
+    """Host scalar: gram bytes (1..5) → (lo, hi) packed key."""
+    n = len(gram)
+    if not 1 <= n <= MAX_EXACT_GRAM_LEN:
+        raise ValueError(f"gram length {n} outside 1..{MAX_EXACT_GRAM_LEN}")
+    lo = 0
+    for i in range(4):
+        lo = (lo << 8) | (gram[i] if i < n else 0)
+    if lo >= 1 << 31:  # the device's wrapped int32 representation
+        lo -= _INT32_WRAP
+    hi = (gram[4] if n == 5 else 0) | (n << 8)
+    return lo, hi
+
+
+def window_keys(batch: torch.Tensor, n: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Device window keys: uint8 [B, S] → (lo, hi) int32 [B, S-n+1] each."""
+    B, S = batch.shape
+    if S < n:
+        batch = torch.nn.functional.pad(batch, (0, n - S))
+        S = n
+    W = S - n + 1
+    lo = torch.zeros((B, W), dtype=torch.int64, device=batch.device)
+    for i in range(min(n, 4)):
+        lo = lo | (batch[:, i : i + W].long() << (8 * (3 - i)))
+    hi = torch.full((B, W), n << 8, dtype=torch.int64, device=batch.device)
+    if n == 5:
+        hi = hi | batch[:, 4 : 4 + W].long()
+    return _fold_int32(lo), hi.to(torch.int32)
+
+
+def window_keys_numpy(batch: np.ndarray, n: int) -> tuple[np.ndarray, np.ndarray]:
+    """Host mirror of :func:`window_keys`."""
+    B, S = batch.shape
+    if S < n:
+        batch = np.pad(batch, ((0, 0), (0, n - S)))
+        S = n
+    W = S - n + 1
+    lo = np.zeros((B, W), dtype=np.int64)
+    for i in range(4):
+        plane = (
+            batch[:, i : i + W].astype(np.int64)
+            if i < n
+            else np.zeros((B, W), np.int64)
+        )
+        lo = (lo << 8) | plane
+    hi = (
+        batch[:, 4 : 4 + W].astype(np.int64) if n == 5 else np.zeros((B, W), np.int64)
+    ) | (n << 8)
+    return lo.astype(np.int32), hi.astype(np.int32)
+
+
+def partial_window_keys(
+    batch: torch.Tensor, lengths: torch.Tensor, n: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Packed key of each doc's single partial window (len < n): (lo, hi)
+    int32 [B]. The partial window is the whole document, a gram of its own
+    length k (Scala ``sliding``, as :func:`partial_window_ids`). Values are
+    only meaningful where ``0 < lengths < n``; callers mask."""
+    B, S = batch.shape
+    if S < 4:
+        batch = torch.nn.functional.pad(batch, (0, 4 - S))
+    # k <= n - 1 <= 4, so the fifth byte never takes part; hi is the tag.
+    k = lengths.long().clamp(0, n - 1)
+    lo = torch.zeros((B,), dtype=torch.int64, device=batch.device)
+    for i in range(4):
+        lo = (lo << 8) | torch.where(i < k, batch[:, i].long(), 0)
+    return _fold_int32(lo), (k << 8).to(torch.int32)
+
+
+# Murmur3-style 32-bit mixer over a packed key + seed (the cuckoo and bucket
+# tables' hashes).
+_MIX_C1 = 0x85EB_CA6B
+_MIX_C2 = 0xC2B2_AE35
+_GOLDEN = 0x9E37_79B9
+
+
+def mix32(lo, hi, seed: int) -> np.ndarray:
+    """uint32 mix of int32 (lo, hi) arrays + seed (numpy; int32 → uint32
+    casts wrap two's-complement)."""
+    u = np.uint32
+    h = np.asarray(lo).astype(u) ^ u((seed * _GOLDEN) & _MASK32)
+    h = (h ^ (h >> u(16))) * u(_MIX_C1)
+    h = h ^ np.asarray(hi).astype(u) * u(_MIX_C2)
+    h = (h ^ (h >> u(13))) * u(_MIX_C1)
+    return h ^ (h >> u(16))
+
+
+def _mul32(h: torch.Tensor, c: int) -> torch.Tensor:
+    """(h * c) mod 2^32 for int64 h in [0, 2^32) and a 32-bit constant c,
+    with c split into 16-bit halves so no product reaches 2^49."""
+    lo_part = h * (c & 0xFFFF)
+    hi_part = ((h * (c >> 16)) & 0xFFFF) << 16
+    return (lo_part + hi_part) & _MASK32
+
+
+def mix32_torch(lo: torch.Tensor, hi: torch.Tensor, seed: int) -> torch.Tensor:
+    """:func:`mix32` on torch int32 (lo, hi) → int64 in [0, 2^32)."""
+    h = (lo.long() & _MASK32) ^ ((seed * _GOLDEN) & _MASK32)
+    h = _mul32(h ^ (h >> 16), _MIX_C1)
+    h = h ^ _mul32(hi.long() & _MASK32, _MIX_C2)
+    h = _mul32(h ^ (h >> 13), _MIX_C1)
+    return h ^ (h >> 16)
 
 
 def short_doc_ids_numpy(doc: bytes, spec: VocabSpec) -> list[int]:

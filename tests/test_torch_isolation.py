@@ -1,7 +1,9 @@
 """The port stands alone: no JAX, no JAX package, no quiet CPU fall-back.
 
-* A subprocess fits and transforms with ``device="cpu"`` and then finds
-  neither ``jax`` nor ``spark_languagedetector_tpu`` in ``sys.modules``.
+* A subprocess fits and transforms with ``device="cpu"`` (an exact n = 1..3
+  model through the fused path and an exact n = 1..5 model through the
+  hybrid path) and then finds neither ``jax`` nor
+  ``spark_languagedetector_tpu`` in ``sys.modules``.
 * An AST scan finds no import of either anywhere in the port.
 * With no device given and no CUDA card, the entry points raise.
 """
@@ -38,6 +40,13 @@ def test_fit_and_transform_leave_jax_unimported():
                                             "die katze", "the end", "das ende"]}))
         out = model.transform(Table({"fulltext": ["the dog", "der kater"]}))
         assert out.column("lang").tolist() == ["en", "de"], out.column("lang")
+        exact5 = det.copy({"gramLengths": [1, 2, 3, 4, 5], "vocabMode": "exact"})
+        model5 = exact5.fit(Table({"lang": ["en", "de"] * 3,
+                                   "fulltext": ["the cat", "der hund", "a dog",
+                                                "die katze", "the end", "das ende"]}))
+        out = model5.transform(Table({"fulltext": ["the dog", "der kater"]}))
+        assert out.column("lang").tolist() == ["en", "de"], out.column("lang")
+        assert model5.runner.strategy == "hybrid", model5.runner.strategy
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "spark_languagedetector_tpu"))
         assert not bad, bad
@@ -68,7 +77,9 @@ def test_no_module_of_the_port_imports_jax():
                 if n.split(".")[0] in FORBIDDEN
             ]
     assert not offenders, offenders
-    assert len(list(PORT_DIR.rglob("*.py"))) >= 15
+    scanned = {p.name for p in PORT_DIR.rglob("*.py")}
+    assert len(scanned) >= 15
+    assert {"cuckoo.py", "bucket.py", "score_hist.py", "score_pallas.py"} <= scanned
 
 
 def test_entry_points_without_device_raise_when_no_cuda(monkeypatch):
@@ -97,11 +108,20 @@ def test_entry_points_without_device_raise_when_no_cuda(monkeypatch):
 
 
 def test_exact_long_grams_name_the_later_slice():
-    profile = GramProfile(
-        spec=VocabSpec("exact", (1, 2, 3, 4)),
-        languages=("en",),
-        ids=np.asarray([5], np.int64),
-        weights=np.ones((1, 1)),
+    """Exact gram lengths > 3 were refused until the cuckoo slice; now their
+    device view is a cuckoo table (no dense form, no LUT) and a model built
+    on one labels documents."""
+    profile = GramProfile.from_gram_map(
+        {b"abcd": [0.0, 2.0], b"ab": [1.0, 0.0], b"q": [0.5, 0.0]},
+        ["en", "de"], [1, 2, 3, 4],
     )
-    with pytest.raises(NotImplementedError, match="later slice"):
+    with pytest.raises(ValueError, match="device_membership"):
         profile.host_membership()
+    w, lut, cuckoo = profile.device_membership(device="cpu")
+    assert lut is None and cuckoo is not None and cuckoo.num_slots >= 16
+    assert tuple(w.shape) == (4, 2) and not w[-1].any()  # zeros miss row
+    model = LanguageDetectorModel(profile, device="cpu")
+    assert model.transform(Table({"fulltext": ["xabcdx", "abq", ""]})).column(
+        "lang"
+    ).tolist() == ["de", "en", "en"]
+    assert model.runner.strategy == "hybrid"

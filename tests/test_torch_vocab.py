@@ -86,3 +86,17 @@ def test_vocab_spec_validation_matches():
         with pytest.raises(ValueError) as ours:
             tv.VocabSpec(*args)
         assert str(ours.value) == str(theirs.value)
+
+
+def test_exact_long_window_ids_point_to_packed_keys():
+    """Exact 4- and 5-gram ids overflow int32: the device ids are refused
+    with a pointer to the packed keys; the host ids (int64) stay exact."""
+    batch = np.arange(16, dtype=np.uint8).reshape(2, 8)
+    for n in (4, 5):
+        spec = tv.VocabSpec("exact", tuple(range(1, n + 1)))
+        with pytest.raises(ValueError, match="window_keys"):
+            tv.window_ids(torch.from_numpy(batch), n, spec)
+        np.testing.assert_array_equal(
+            tv.window_ids_numpy(batch, n, spec),
+            jv.window_ids_numpy(batch, n, jv.VocabSpec("exact", tuple(range(1, n + 1)))),
+        )
