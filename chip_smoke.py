@@ -369,6 +369,13 @@ def phase_kernels(torch, dev) -> float:
     return max_err
 
 
+def window_bytes(lengths, lim, n: int):
+    """int64 [B]: the bytes of each document that its owned full windows of
+    length n read (starts s < min(len - n + 1, lim), bytes s..s+n-1)."""
+    c = (lengths.long() - n + 1).minimum(lim.long()).clamp(min=0)
+    return (c + n - 1) * (c > 0)
+
+
 def _bigram_edge_batch(rng, pad: int):
     """Edge documents for the bigram kernels: empty, 1 byte, 0x00/0xFF,
     short and long random documents, one that fills the padded width (its
@@ -407,6 +414,7 @@ def phase_kernels_hist(torch, dev) -> dict[str, float]:
         got = SH.row_hist_kernel(rows_d, vmax_d, W, rhi, R - 1)
         torch.cuda.synchronize()
         ref = SH.row_hist_plain(rows_d, vmax_d, W, rhi, R - 1)
+        errs["row_hist"] = max(errs["row_hist"], float((got - ref).abs().max()))
         if not torch.equal(got, ref):
             fail(f"row_hist Rhi={rhi}: counts differ from the plain version "
                  f"({int((got != ref).sum())} entries)")
@@ -426,6 +434,8 @@ def phase_kernels_hist(torch, dev) -> dict[str, float]:
                 got = SP.bigram_hist_kernel(bd, ld, md, mask_n)
                 torch.cuda.synchronize()
                 ref = SP.bigram_hist_plain(bd, ld, md, mask_n)
+                errs["bigram_hist"] = max(errs["bigram_hist"],
+                                          float((got - ref).abs().max()))
                 if not torch.equal(got, ref):
                     fail(f"bigram_hist S={pad} mask_n={mask_n}: counts differ from "
                          f"the plain version ({int((got != ref).sum())} entries)")
@@ -620,6 +630,7 @@ def phase_times(torch, dev, model, runner, quant_runners, eval_docs):
     pairs = list(SF.window_rows(inp, lay))
     rows = torch.cat([r for r, _ in pairs], dim=1)
     mask = torch.cat([m for _, m in pairs], dim=1)
+    plane_entries = sum(int(m.sum()) for _, m in pairs[len(lay.inline):])
     weights = mask.to(torch.float32)
     lib = lambda: torch.nn.functional.embedding_bag(  # noqa: E731
         rows, runner.table, mode="sum", per_sample_weights=weights)
@@ -628,18 +639,26 @@ def phase_times(torch, dev, model, runner, quant_runners, eval_docs):
     say("times", f"embedding_bag vs kernel scores: max abs err {lib_err:.3g}")
 
     # Lower bound: the larger of compulsory bytes (each input read once:
-    # byte plane, rows plane, per-doc vectors, the table rows this batch
-    # touches, scales; labels + best written once) over HBM bandwidth, and
-    # the f32 operations the function needs over the f32 rate. A document's
-    # score is the sum over its distinct rows of count x w[row], so it needs
-    # one multiply-add (2 operations) per distinct (document, row) pair and
-    # language, however often the gram repeats.
+    # the bytes the inline lengths' owned windows cover, the rows-plane
+    # entries of owned windows, partial-window rows, per-doc vectors, the
+    # table rows this batch touches, scales; labels + best written once)
+    # over HBM bandwidth, and the f32 operations the function needs over
+    # the f32 rate. Padding past a document's end is not counted. A
+    # document's score is the sum over its distinct rows of count x w[row],
+    # so it needs one multiply-add (2 operations) per distinct (document,
+    # row) pair and language, however often the gram repeats.
     valid = int(mask.sum())
     touched = int(torch.unique(rows[mask]).numel())
     doc = torch.arange(B, device=rows.device)[:, None].expand_as(rows)
     pairs = int(torch.unique((doc * lay.rows + rows)[mask]).numel())
     itemsize = runner.table.element_size()
-    in_bytes = sum(t.numel() * t.element_size() for t in inp if t is not None)
+    byte_reads = torch.zeros_like(inp.lengths, dtype=torch.int64)
+    for n, *_ in lay.inline:
+        short = (inp.lengths > 0) & (inp.lengths < n)
+        byte_reads = torch.maximum(byte_reads, torch.where(
+            short, inp.lengths.long(), window_bytes(inp.lengths, inp.lim, n)))
+    in_bytes = (int(byte_reads.sum()) + plane_entries * 4 + inp.prow.numel() * 4
+                + B * 8)
     total_bytes = in_bytes + touched * L * itemsize + L * 4 + B * 8
     bytes_ms = total_bytes / HBM_BYTES_PER_S * 1e3
     ops = 2 * pairs * L
@@ -880,26 +899,33 @@ def phase_times_hist(torch, dev, model, runner, runner10, eval_docs, launches3, 
         batch, lengths, miss, h.lut, h.bucket, spec=runner.spec, bucket_seed=h.seed,
         bucket_kind=h.kind, gram_lengths_subset=runner.pallas_state.rest)
     R = h.rhi * 256
+    # Compulsory bytes of every kernel below: the entries or bytes that the
+    # documents' own windows cover (padding past a document's end, or past
+    # its vmax, is not counted), the per-doc vectors, the weights touched,
+    # and the output written once.
     got = SH.row_hist_kernel(rows, vmax, W, h.rhi, miss)
     ref = SH.row_hist_plain(rows, vmax, W, h.rhi, miss)
+    err3 = float((got - ref).abs().max())
     if not torch.equal(got, ref):
         fail("config-3 batch: row_hist counts differ from the plain version")
     r = rows.long()
     local = torch.arange(rows.shape[1], device=dev) % W
-    valid = (local[None, :] < vmax.long()[:, None]) & (r >= 0) & (r < R) & (r != miss)
+    read = local[None, :] < vmax.long()[:, None]
+    valid = read & (r >= 0) & (r < R) & (r != miss)
     idx3 = (doc * R + r)[valid]
     out.append(_kernel_entry(
         "row_hist", "row_hist.cu", "spark_languagedetector_tpu/ops/score_hist.py:67",
-        launches3["row_hist"], errs["row_hist"],
+        launches3["row_hist"], max(errs["row_hist"], err3),
         cuda_ms(torch, lambda: SH.row_hist_kernel(rows, vmax, W, h.rhi, miss), reps=20),
         cuda_ms(torch, lambda: SH.row_hist_plain(rows, vmax, W, h.rhi, miss), reps=3,
                 warmup=1),
-        rows.numel() * 4 + B * 4 + B * R * 4, int(valid.sum()),
+        int(read.sum()) * 4 + B * 4 + B * R * 4, int(valid.sum()),
         cuda_ms(torch, lambda: torch.bincount(idx3, minlength=B * R), reps=5, warmup=1)))
 
     # Kernel 4: the bigram histogram.
     got = SP.bigram_hist_kernel(batch, lengths, lim, 2)
     ref = SP.bigram_hist_plain(batch, lengths, lim, 2)
+    err4 = float((got - ref).abs().max())
     if not torch.equal(got, ref):
         fail("config-3 batch: bigram_hist counts differ from the plain version")
     b0 = batch.long()
@@ -910,11 +936,11 @@ def phase_times_hist(torch, dev, model, runner, runner10, eval_docs, launches3, 
     out.append(_kernel_entry(
         "bigram_hist", "bigram_hist.cu",
         "spark_languagedetector_tpu/ops/score_pallas.py:177",
-        launches3["bigram_hist"], errs["bigram_hist"],
+        launches3["bigram_hist"], max(errs["bigram_hist"], err4),
         cuda_ms(torch, lambda: SP.bigram_hist_kernel(batch, lengths, lim, 2), reps=20),
         cuda_ms(torch, lambda: SP.bigram_hist_plain(batch, lengths, lim, 2), reps=3,
                 warmup=1),
-        B * S + B * 8 + B * 65536 * 4, int(m2.sum()),
+        int(window_bytes(lengths, lim, 2).sum()) + B * 8 + B * 65536 * 4, int(m2.sum()),
         cuda_ms(torch, lambda: torch.bincount(idx4, minlength=B * 65536), reps=5,
                 warmup=1)))
 
@@ -945,7 +971,8 @@ def phase_times_hist(torch, dev, model, runner, runner10, eval_docs, launches3, 
                                                       True, True), reps=20),
         cuda_ms(torch, lambda: SP.bigram_score_plain(batch, lengths, lim, st.w1, st.w2,
                                                      True, True), reps=3, warmup=1),
-        B * S + B * 8 + (touched + 256) * L * 4 + B * L * 4, 2 * (pairs2 + pairs1) * L,
+        int(torch.maximum(window_bytes(lengths, lim, 1), window_bytes(lengths, lim, 2)).sum())
+        + B * 8 + (touched + 256) * L * 4 + B * L * 4, 2 * (pairs2 + pairs1) * L,
         cuda_ms(torch, lib, reps=5, warmup=1)))
     say("times", f"bigram_score at L={L}: {pairs2} distinct (doc, bigram) and {pairs1} "
         f"distinct (doc, byte) pairs, {touched} w2 rows touched")

@@ -374,10 +374,6 @@ def fused_plain(
 # ------------------------------------------------- CUDA kernel -------------
 
 
-def _check(t: torch.Tensor, name: str, dtype, ndim: int, device) -> None:
-    check_operand("fused kernel", t, name, dtype, ndim, device)
-
-
 def fused_kernel(
     inp: FusedInputs,
     wq: torch.Tensor,
@@ -394,12 +390,12 @@ def fused_kernel(
         raise ValueError(f"fused kernel needs CUDA tensors, got {dev}")
     B, S = batch.shape
     R, L = layout.rows, layout.n_langs
-    _check(batch, "batch", torch.uint8, 2, dev)
-    _check(lengths, "lengths", torch.int32, 1, dev)
-    _check(lim, "lim", torch.int32, 1, dev)
-    _check(prow, "prow", torch.int32, 2, dev)
-    _check(wq, "wq", _TORCH_DTYPE[layout.quant], 2, dev)
-    _check(scales, "scales", torch.float32, 1, dev)
+    check_operand("fused kernel", batch, "batch", torch.uint8, 2, dev)
+    check_operand("fused kernel", lengths, "lengths", torch.int32, 1, dev)
+    check_operand("fused kernel", lim, "lim", torch.int32, 1, dev)
+    check_operand("fused kernel", prow, "prow", torch.int32, 2, dev)
+    check_operand("fused kernel", wq, "wq", _TORCH_DTYPE[layout.quant], 2, dev)
+    check_operand("fused kernel", scales, "scales", torch.float32, 1, dev)
     n_inline = len(layout.inline)
     K = len(layout.rows_lengths)
     if tuple(wq.shape) != (R, L) or tuple(scales.shape) != (L,):
@@ -412,7 +408,7 @@ def fused_kernel(
     if K:
         if rows is None:
             raise ValueError("fused kernel: the layout needs a rows plane")
-        _check(rows, "rows", torch.int32, 3, dev)
+        check_operand("fused kernel", rows, "rows", torch.int32, 3, dev)
         if rows.shape[0] != B or rows.shape[1] != K:
             raise ValueError("fused kernel: rows plane disagrees with the layout")
         W = rows.shape[2]

@@ -247,12 +247,14 @@ def score_batch_hist(
 
     Same contract as ``ops.score.score_batch`` / ``score_batch_cuckoo``
     (masking, the Scala ``sliding`` partial-window rule, ``window_limit``,
-    subset), with the weight table pre-padded by :func:`pad_weights` (float32
-    or float64; the contraction runs in float64 either way). Membership is
-    the bucket table when ``bucket`` is given (``bucket_kind`` 'exact':
-    packed gram keys from a cuckoo profile; 'hashed': int32 window ids from a
-    LUT profile), else the id→row ``lut``.
+    subset), with the weight table pre-padded by :func:`pad_weights` and held
+    as float64, the dtype of the contraction. Membership is the bucket table
+    when ``bucket`` is given (``bucket_kind`` 'exact': packed gram keys from
+    a cuckoo profile; 'hashed': int32 window ids from a LUT profile), else
+    the id→row ``lut``.
     """
+    if weights_pad.dtype != torch.float64:
+        raise ValueError(f"weights_pad must be float64, got {weights_pad.dtype}")
     miss = weights_pad.shape[0] - 1  # a zero row (pad_weights)
     rows, vmax, W = hist_rows_plane(
         batch, lengths, miss, lut, bucket, window_limit, spec=spec,
@@ -260,6 +262,4 @@ def score_batch_hist(
         gram_lengths_subset=gram_lengths_subset,
     )
     hist = row_hist(rows, vmax, W, rhi, miss)
-    return torch.matmul(
-        hist.to(torch.float64), weights_pad.to(torch.float64)
-    ).to(torch.float32)
+    return torch.matmul(hist.to(torch.float64), weights_pad).to(torch.float32)

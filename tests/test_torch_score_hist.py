@@ -136,7 +136,7 @@ def test_score_batch_hist_matches_jax(name, limited, subset):
     lim = (rng.integers(1, 40, len(docs)) if limited else np.full(len(docs), PAD)).astype(np.int32)
     wp, rhi = SH.pad_weights(w)
     got = SH.score_batch_hist(
-        torch.from_numpy(batch), torch.from_numpy(lengths), torch.from_numpy(wp),
+        torch.from_numpy(batch), torch.from_numpy(lengths), torch.from_numpy(wp).double(),
         window_limit=torch.from_numpy(lim), spec=spec, rhi=rhi,
         gram_lengths_subset=subset, **_port_member(member),
     ).numpy()
@@ -210,10 +210,15 @@ def test_hist_contraction_runs_in_float64(monkeypatch):
 
     monkeypatch.setattr(torch, "matmul", spy)
     SH.score_batch_hist(
-        torch.from_numpy(batch), torch.from_numpy(lengths), torch.from_numpy(wp),
+        torch.from_numpy(batch), torch.from_numpy(lengths), torch.from_numpy(wp).double(),
         spec=VocabSpec(*args), rhi=rhi, **_port_member(member),
     )
     assert seen == [(torch.float64, torch.float64)]
+    with pytest.raises(ValueError, match="float64"):
+        SH.score_batch_hist(
+            torch.from_numpy(batch), torch.from_numpy(lengths), torch.from_numpy(wp),
+            spec=VocabSpec(*args), rhi=rhi, **_port_member(member),
+        )
 
 
 def test_pad_weights_matches_jax():
