@@ -15,7 +15,10 @@ Phases, one line or more each; any failure exits non-zero before the verdict:
    detect}, edge documents, window limits and a wide-L case; the row
    histogram on both sides of its shared-memory threshold; the bigram
    histogram (mask_n 1 and 2) and bigram score (L = 3 and 16) over edge
-   documents with and without window limits;
+   documents with and without window limits; fused segment over the same
+   five layouts x {f32, int16, int8} x cell {128, 256, 512} on a batch
+   whose width is no cell multiple, with unaligned window limits, skipped
+   cells exactly zero;
 4. main     — ``LanguageDetector.fit`` → ``LanguageDetectorModel.transform``
    at the 176-language hashed config (gram lengths 1..5, 2^20 buckets,
    profile size 400; the JAX package's ``bench.py`` config 5) on the same
@@ -36,7 +39,19 @@ Phases, one line or more each; any failure exits non-zero before the verdict:
 8. times    — the three histogram-side kernels at the config-3 runner's
    largest batch: kernel, plain version, lower bound and one library call
    each (``bincount``, ``bincount``, ``embedding_bag``), then end-to-end
-   config-3 docs/s and the device's busy share.
+   config-3 docs/s and the device's busy share;
+9. segment  — the config-5 model with ``resultMode="segment"``, calibrated
+   on a held-out split, transforms a code-switched corpus (2-3 blocks of
+   ~1,280 bytes, two ~20 KB documents that chunk on a cell-aligned stride,
+   the empty document) through the fused-segment kernel: per-cell scores
+   against the plain version and the host float64 oracle, cell sums against
+   ``runner.score``, byte-span macro F1 against the known boundaries,
+   whole-doc labels unchanged by the segment traffic; then the kernel's
+   time, plain version, bound and ``embedding_bag`` at the largest config-5
+   batch, and a warm segment transform's docs/s and busy share;
+10. segment3 — the config-3 model (hybrid) segments a smaller corpus through
+   the gather cell scorer (cuckoo membership; no kernel on this route)
+   and matches the host float64 oracle.
 
 It imports nothing of JAX. Without a CUDA card, or without the package
 beside it, it exits non-zero and prints no result.
@@ -193,6 +208,74 @@ def make_corpus(langs, n_docs, mean_len=1500, seed=0):
         docs.append(" ".join(rng.choice(words[lang], size=n_words, p=probs[lang])))
         labels.append(lang)
     return docs, labels
+
+
+def make_codeswitch_corpus(langs, n_docs, block_bytes=1280, blocks=(2, 3), seed=23):
+    """Block-structured code-switched documents with known span boundaries
+    (the JAX package's bench.py corpus of the same name): each document
+    concatenates 2-3 single-language blocks of about ``block_bytes`` bytes,
+    adjacent blocks in different languages; the truth is byte-offset spans
+    ``[(start, end, lang), ...]`` partitioning the document."""
+    rng = np.random.default_rng(seed)
+    words = {l: np.asarray(word_list(l)) for l in langs}
+    probs = {l: _zipf_probs(len(words[l])) for l in langs}
+
+    def block(lang, target):
+        out = []
+        size = -1  # first word adds no separator
+        while size < target:
+            w = str(rng.choice(words[lang], p=probs[lang]))
+            out.append(w)
+            size += len(w.encode("utf-8")) + 1
+        return " ".join(out)
+
+    docs, truth = [], []
+    for _ in range(n_docs):
+        seq = []
+        for _ in range(int(rng.choice(list(blocks)))):
+            prev = seq[-1] if seq else None
+            seq.append(str(rng.choice([l for l in langs if l != prev])))
+        parts = [block(l, block_bytes) for l in seq]
+        spans, pos = [], 0
+        for lang, part in zip(seq, parts):
+            # The joining space after a block belongs to that block.
+            end = pos + len(part.encode("utf-8")) + 1
+            spans.append([pos, end, lang])
+            pos = end
+        spans[-1][1] = pos - 1  # no trailing separator on the last block
+        docs.append(" ".join(parts))
+        truth.append([tuple(s) for s in spans])
+    return docs, truth
+
+
+def macro_span_f1(truths, results, doc_lens, name_of=lambda lang: lang) -> float:
+    """Macro-averaged byte F1 over the languages of the truth: per document
+    the byte labelling that the true and the decoded spans induce, tallied
+    per language (``name_of`` maps a language to the class it is scored
+    as, e.g. its family)."""
+    agg: dict[str, list[int]] = {}
+    for truth, res, n in zip(truths, results, doc_lens):
+        names: list[str] = []
+
+        def idx(lang):
+            lang = name_of(lang)
+            if lang not in names:
+                names.append(lang)
+            return names.index(lang)
+
+        t = np.full(n, -1, dtype=np.int64)
+        q = np.full(n, -2, dtype=np.int64)
+        for start, end, lang in truth:
+            t[start:end] = idx(lang)
+        for sp in res["spans"]:
+            q[sp["start"]:sp["end"]] = idx(sp["lang"])
+        for i, lang in enumerate(names):
+            a = agg.setdefault(lang, [0, 0, 0])
+            a[0] += int(np.sum((t == i) & (q == i)))
+            a[1] += int(np.sum((t != i) & (q == i)))
+            a[2] += int(np.sum((t == i) & (q != i)))
+    f1s = [2 * tp / (2 * tp + fp + fn) for tp, fp, fn in agg.values() if tp + fn]
+    return float(np.mean(f1s)) if f1s else 0.0
 
 
 # ------------------------------------------------------------- helpers -----
@@ -369,6 +452,66 @@ def phase_kernels(torch, dev) -> float:
     return max_err
 
 
+def phase_kernels_segment(torch, dev) -> float:
+    """The fused-segment kernel against its plain version on the card: the
+    five layouts x {f32, int16, int8} x cell {128, 256, 512}, with and
+    without unaligned window limits, on edge documents (empty, shorter than
+    n, mostly-miss random bytes) in a batch whose width is no multiple of
+    any cell; f32 within ATOL/RTOL, integer tables bit for bit, skipped
+    cells exactly zero. Returns the max abs error."""
+    from spark_languagedetector_tpu_torch.ops import score_fused as SF
+    from spark_languagedetector_tpu_torch.ops.encoding import pad_batch
+    from spark_languagedetector_tpu_torch.ops.vocab import VocabSpec
+
+    max_err = 0.0
+    rng = np.random.default_rng(13)
+    pad = 1300  # 10.2 cells of 128, 5.1 of 256, 2.5 of 512
+    for L in (6, 1100):
+        for name, spec, w, lut in _layout_cases(VocabSpec, L, seed=L):
+            if L > 6 and name != "lut_exact12_n1_5":
+                continue
+            docs, _ = _edge_batch(rng, 7, pad)
+            docs.append(b"\xff" * pad)  # fills the width: last cell is ragged
+            lim = np.where(np.arange(len(docs)) % 2 == 0,
+                           rng.integers(1, pad, len(docs)), pad).astype(np.int32)
+            batch, lengths = pad_batch(docs, pad)
+            bd = torch.from_numpy(batch).to(dev)
+            ld = torch.from_numpy(lengths).to(dev)
+            for quant in (None, "int16", "int8"):
+                ft = SF.build_fused_tables(w, lut, spec, quant)
+                wq = torch.from_numpy(ft.wq).to(dev)
+                scales = torch.from_numpy(ft.scales).to(dev)
+                lut_d = None if ft.lut is None else torch.from_numpy(ft.lut).to(dev)
+                case_err = 0.0
+                for limit in (None, lim):
+                    lim_d = None if limit is None else torch.from_numpy(limit).to(dev)
+                    inp = SF.prepare_fused_inputs(bd, ld, lut_d, lim_d, spec, ft.layout)
+                    for cell in (128, 256, 512):
+                        what = (f"fused_segment {name} L={L} {quant or 'f32'} cell={cell} "
+                                f"limit={'yes' if limit is not None else 'no'}")
+                        got = SF.fused_segment_kernel(inp, wq, scales, ft.layout, cell)
+                        torch.cuda.synchronize()
+                        ref = SF.fused_segment_plain(inp, wq, scales, ft.layout, cell)
+                        err = float((got - ref).abs().max())
+                        if not torch.allclose(got, ref, atol=ATOL, rtol=RTOL):
+                            fail(f"{what}: differs from the plain version (max abs err {err:.3g})")
+                        if quant is not None and not torch.equal(got, ref):
+                            fail(f"{what}: integer sums must be bit-identical, "
+                                 f"max abs err {err:.3g}")
+                        starts = torch.arange(got.shape[1], device=dev)[None, :] * cell
+                        dead = (starts >= inp.lengths[:, None]) | (starts >= inp.lim[:, None])
+                        if bool((got[dead] != 0).any()):
+                            fail(f"{what}: a cell at or past min(len, lim) is not zero")
+                        whole = SF.fused_kernel(inp, wq, scales, ft.layout, want_labels=False)
+                        if not torch.allclose(got.sum(dim=1), whole, atol=1e-2, rtol=1e-4):
+                            fail(f"{what}: cells do not sum to the whole-document scores")
+                        case_err = max(case_err, err)
+                max_err = max(max_err, case_err)
+                say("kernels", f"fused_segment {name} L={L} {quant or 'f32'} cells 128/256/512 "
+                    f"with and without limits: max abs err {case_err:.3g}")
+    return max_err
+
+
 def window_bytes(lengths, lim, n: int):
     """int64 [B]: the bytes of each document that its owned full windows of
     length n read (starts s < min(len - n + 1, lim), bytes s..s+n-1)."""
@@ -460,13 +603,15 @@ def phase_kernels_hist(torch, dev) -> dict[str, float]:
 @contextlib.contextmanager
 def plain_version(SF):
     """Route every kernel wrapper's CUDA branch to its plain PyTorch version
-    (the fused, row-histogram, bigram-histogram and bigram-score kernels), so
+    (the fused detect and segment, row-histogram, bigram-histogram and
+    bigram-score kernels), so
     the runner's whole path (plan, chunking, argmax) runs unchanged on the
     same device with the kernels swapped out."""
     from spark_languagedetector_tpu_torch.ops import score_hist as SH
     from spark_languagedetector_tpu_torch.ops import score_pallas as SP
 
     swaps = [(SF, "fused_kernel", SF.fused_plain),
+             (SF, "fused_segment_kernel", SF.fused_segment_plain),
              (SH, "row_hist_kernel", SH.row_hist_plain),
              (SP, "bigram_hist_kernel", SP.bigram_hist_plain),
              (SP, "bigram_score_kernel", SP.bigram_score_plain)]
@@ -558,7 +703,7 @@ def phase_main(torch, dev):
         if agree < gate:
             fail(f"{quant} agreement {agree} below the gate {gate}")
         quant_runners[quant] = qmodel.runner
-    return model, runner, quant_runners, eval_docs, launches
+    return model, runner, quant_runners, texts, ids, eval_docs, launches
 
 
 def device_breakdown(torch, fn, wall_ms: float, top: int = 8) -> None:
@@ -588,6 +733,27 @@ def device_breakdown(torch, fn, wall_ms: float, top: int = 8) -> None:
         f"{1 - busy_ms / wall_ms:.1%} idle")
     for key, ms, count in rows[:top]:
         say("profile", f"  {ms:8.3f} ms  {count:5d}x  {key[:90]}")
+
+
+def fused_compulsory_inputs(torch, SF, inp, lay):
+    """What a fused kernel must read of one batch besides the table: (rows
+    int64 [B, ΣW], mask bool [B, ΣW] of the counted windows of every length,
+    input bytes, distinct table rows touched). Input bytes: the bytes that
+    the inline lengths' owned windows cover, the rows-plane entries of owned
+    windows, the partial-window rows and the two per-document vectors;
+    padding past a document's end is not counted."""
+    pairs = list(SF.window_rows(inp, lay))
+    rows = torch.cat([r for r, _ in pairs], dim=1)
+    mask = torch.cat([m for _, m in pairs], dim=1)
+    plane_entries = sum(int(m.sum()) for _, m in pairs[len(lay.inline):])
+    byte_reads = torch.zeros_like(inp.lengths, dtype=torch.int64)
+    for n, *_ in lay.inline:
+        short = (inp.lengths > 0) & (inp.lengths < n)
+        byte_reads = torch.maximum(byte_reads, torch.where(
+            short, inp.lengths.long(), window_bytes(inp.lengths, inp.lim, n)))
+    in_bytes = (int(byte_reads.sum()) + plane_entries * 4 + inp.prow.numel() * 4
+                + inp.batch.shape[0] * 8)
+    return rows, mask, in_bytes, int(torch.unique(rows[mask]).numel())
 
 
 def phase_times(torch, dev, model, runner, quant_runners, eval_docs):
@@ -627,10 +793,7 @@ def phase_times(torch, dev, model, runner, quant_runners, eval_docs):
         inp, runner.table, runner.scales, lay, want_labels=True), reps=3, warmup=1)
     q_ms = {q: cuda_ms(torch, lambda r=r: kernel(r), reps=20) for q, r in quant_runners.items()}
 
-    pairs = list(SF.window_rows(inp, lay))
-    rows = torch.cat([r for r, _ in pairs], dim=1)
-    mask = torch.cat([m for _, m in pairs], dim=1)
-    plane_entries = sum(int(m.sum()) for _, m in pairs[len(lay.inline):])
+    rows, mask, in_bytes, touched = fused_compulsory_inputs(torch, SF, inp, lay)
     weights = mask.to(torch.float32)
     lib = lambda: torch.nn.functional.embedding_bag(  # noqa: E731
         rows, runner.table, mode="sum", per_sample_weights=weights)
@@ -648,17 +811,9 @@ def phase_times(torch, dev, model, runner, quant_runners, eval_docs):
     # so it needs one multiply-add (2 operations) per distinct (document,
     # row) pair and language, however often the gram repeats.
     valid = int(mask.sum())
-    touched = int(torch.unique(rows[mask]).numel())
     doc = torch.arange(B, device=rows.device)[:, None].expand_as(rows)
     pairs = int(torch.unique((doc * lay.rows + rows)[mask]).numel())
     itemsize = runner.table.element_size()
-    byte_reads = torch.zeros_like(inp.lengths, dtype=torch.int64)
-    for n, *_ in lay.inline:
-        short = (inp.lengths > 0) & (inp.lengths < n)
-        byte_reads = torch.maximum(byte_reads, torch.where(
-            short, inp.lengths.long(), window_bytes(inp.lengths, inp.lim, n)))
-    in_bytes = (int(byte_reads.sum()) + plane_entries * 4 + inp.prow.numel() * 4
-                + B * 8)
     total_bytes = in_bytes + touched * L * itemsize + L * 4 + B * 8
     bytes_ms = total_bytes / HBM_BYTES_PER_S * 1e3
     ops = 2 * pairs * L
@@ -684,7 +839,7 @@ def phase_times(torch, dev, model, runner, quant_runners, eval_docs):
         f"{len(eval_docs) / e2e_s:.0f} docs/s (host clock, warm)")
     device_breakdown(torch, lambda: model.transform(table), e2e_s * 1e3)
     return c5_err, dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                        bound_by=bound_by, library_ms=library_ms)
+                        bound_by=bound_by, library_ms=library_ms), inp
 
 
 def reset_launches() -> None:
@@ -990,6 +1145,251 @@ def phase_times_hist(torch, dev, model, runner, runner10, eval_docs, launches3, 
     return out
 
 
+CELL_ATOL = 1e-3  # per-cell f32 sums against float64 (the gather-vs-oracle class)
+SPAN_F1_GATE = 0.85  # the JAX package's segmentation gate (bench.py smoke_segment)
+
+
+def check_cells(what: str, got, ref, atol: float, rtol: float) -> float:
+    """Per-document cell arrays against a reference: same shapes, values
+    within atol/rtol. Returns the max abs error."""
+    err = 0.0
+    for i, (g, r) in enumerate(zip(got, ref)):
+        if g.shape != r.shape:
+            fail(f"{what}: doc {i} cells {g.shape} != {r.shape}")
+        if g.size:
+            err = max(err, float(np.abs(g - r).max()))
+        if not np.allclose(g, r, atol=atol, rtol=rtol):
+            fail(f"{what}: doc {i} differs (max abs err {float(np.abs(g - r).max()):.3g})")
+    return err
+
+
+def phase_segment(torch, dev, model, main_ids, main_docs):
+    """Segment mode at full width: the config-5 model (176 languages),
+    calibrated on a held-out split, transforms a code-switched corpus with
+    ``resultMode="segment"`` through the fused-segment kernel."""
+    from spark_languagedetector_tpu_torch import Table
+    from spark_languagedetector_tpu_torch.api.runner import SEGMENT_CELL
+    from spark_languagedetector_tpu_torch.ops import score_fused as SF
+    from spark_languagedetector_tpu_torch.ops.score import window_scores_numpy
+
+    langs = list(model.profile.languages)
+    held, held_labels = make_corpus(langs, 2 * len(langs), mean_len=250, seed=77)
+    t0 = time.perf_counter()
+    model.calibrate(Table({"fulltext": held, "lang": held_labels}))
+    meta = model.calibration.meta
+    say("segment", f"calibrated on {len(held)} held-out docs in {time.perf_counter() - t0:.1f}s: "
+        f"NLL {meta['nll_before']} -> {meta['nll_after']}, ECE {meta['ece_before']} -> "
+        f"{meta['ece_after']}")
+    seg = model.copy({"resultMode": "segment"})
+    seg.calibration = model.calibration
+    runner = seg.runner
+    if runner.strategy != "fused":
+        fail(f"segment runner strategy is {runner.strategy!r}, expected 'fused'")
+    main_bytes = [t.encode() for t in main_docs]
+    if not np.array_equal(runner.predict_ids(main_bytes), main_ids):
+        fail("the segment-mode model's whole-doc labels differ from phase main's")
+
+    cs_docs, truth = make_codeswitch_corpus(langs, 300, seed=23)
+    long_docs, long_labels = make_corpus(langs[:2], 2, mean_len=20000, seed=5)
+    texts = cs_docs + long_docs + [""]
+    truth = truth + [[(0, len(d.encode()), l)] for d, l in zip(long_docs, long_labels)] + [[]]
+    byte_docs = [t.encode() for t in texts]
+    n_chunked = sum(len(d) > runner.max_chunk for d in byte_docs)
+
+    plain_calls = []
+    real_plain = SF.fused_segment_plain
+    SF.fused_segment_plain = lambda *a, **k: plain_calls.append(1) or real_plain(*a, **k)
+    try:
+        reset_launches()
+        t0 = time.perf_counter()
+        out = seg.transform(Table({"fulltext": texts})).column("lang").tolist()
+        torch.cuda.synchronize()
+        cold_s = time.perf_counter() - t0
+        launches = read_launches()
+    finally:
+        SF.fused_segment_plain = real_plain
+    results = [json.loads(v) for v in out]
+    say("segment", f"transform {len(texts)} docs ({sum(map(len, byte_docs)) / 1e6:.2f} MB, "
+        f"{n_chunked} chunked, cell {SEGMENT_CELL}): {cold_s:.2f}s (first call); "
+        f"launches {launches}; plain-version calls {len(plain_calls)}")
+    if launches["fused_segment"] <= 0:
+        fail("the segment path never launched the fused-segment kernel")
+    if plain_calls:
+        fail("the segment path reached the plain version (a CPU tensor) on the card")
+    if n_chunked != len(long_docs):
+        fail(f"expected {len(long_docs)} chunked documents, got {n_chunked}")
+
+    # Results: shape, partition of every document, finite probabilities.
+    for r, d in zip(results, byte_docs):
+        if set(r) != {"label", "rejected", "calibrated", "topk", "spans"} or not r["calibrated"]:
+            fail(f"segment result malformed: {sorted(r)} calibrated={r.get('calibrated')}")
+        spans = r["spans"]
+        if d and (spans[0]["start"] != 0 or spans[-1]["end"] != len(d)
+                  or any(a["end"] != b["start"] for a, b in zip(spans, spans[1:]))):
+            fail("segment spans do not partition their document")
+        if not d and spans:
+            fail("the empty document must have no spans")
+        if not all(np.isfinite(e["prob"]) and 0.0 <= e["prob"] <= 1.0 for e in r["topk"]):
+            fail("segment top-k probabilities are not finite probabilities")
+
+    # Per-cell scores: kernel vs the plain version on the card (whole input),
+    # vs the host float64 oracle (a sample, the chunked and the empty
+    # documents included), and their sums vs the whole-document scores.
+    cells, scored = runner.segment_cells(byte_docs)
+    with plain_version(SF):
+        plain_cells, _ = runner.segment_cells(byte_docs)
+    err_plain = check_cells("segment kernel vs plain", cells, plain_cells, ATOL, RTOL)
+    sample = list(range(60)) + list(range(len(cs_docs), len(byte_docs)))
+    w, sorted_ids = model.profile.host_arrays()
+    oracle = window_scores_numpy([byte_docs[i] for i in sample], w, sorted_ids,
+                                 model.profile.spec, SEGMENT_CELL)
+    err_host = check_cells("segment kernel vs host f64", [cells[i] for i in sample], oracle,
+                           CELL_ATOL, RTOL)
+    whole = runner.score(byte_docs)
+    sums = np.stack([c.sum(axis=0) for c in cells])
+    if not np.allclose(sums, whole, rtol=1e-4, atol=1e-2):
+        fail(f"cell sums differ from runner.score (max abs {float(np.abs(sums - whole).max()):.3g})")
+    if cells[-1].shape != (1, len(langs)) or cells[-1].any():
+        fail("the empty document must be one all-zero cell")
+    say("segment", f"cells: max abs err {err_plain:.3g} vs the plain version on the card "
+        f"({len(cells)} docs, atol {ATOL}), {err_host:.3g} vs window_scores_numpy (host f64, "
+        f"{len(sample)} docs, atol {CELL_ATOL}); cell sums = runner.score within "
+        f"rtol 1e-4/atol 1e-2")
+
+    lens = [len(d) for d in byte_docs]
+    f1 = macro_span_f1(truth, results, lens)
+    f1_family = macro_span_f1(truth, results, lens, name_of=family_of)
+    top1 = float(np.mean([r["label"] in {l for _, _, l in t} for r, t in
+                          zip(results[:len(cs_docs)], truth)]))
+    say("segment", f"byte-span macro F1 vs the known boundaries: {f1:.4f} by language "
+        f"(gate {SPAN_F1_GATE}), {f1_family:.4f} by family; top-1 label among the "
+        f"document's true languages {top1:.4f}; spans per doc "
+        f"{np.mean([len(r['spans']) for r in results[:len(cs_docs)]]):.2f}")
+    if f1 < SPAN_F1_GATE:
+        fail(f"segmentation span F1 {f1:.4f} below the gate {SPAN_F1_GATE}")
+
+    if not np.array_equal(runner.predict_ids(main_bytes), main_ids):
+        fail("whole-doc labels changed after the segment traffic")
+    say("segment", f"whole-doc labels of {len(main_ids)} phase-main docs unchanged after "
+        "the segment traffic")
+
+    table = Table({"fulltext": cs_docs})
+    seg.transform(table)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    seg.transform(table)
+    torch.cuda.synchronize()
+    e2e_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    runner.segment_cells([t.encode() for t in cs_docs])
+    cells_s = time.perf_counter() - t0
+    say("segment", f"end-to-end segment transform of {len(cs_docs)} docs: {e2e_s:.3f}s = "
+        f"{len(cs_docs) / e2e_s:.0f} docs/s (host clock, warm); of it segment_cells "
+        f"{cells_s * 1e3:.1f} ms, host decode (segment/) {(e2e_s - cells_s) * 1e3:.1f} ms")
+    device_breakdown(torch, lambda: seg.transform(table), e2e_s * 1e3)
+    return launches["fused_segment"], err_plain
+
+
+def phase_times_segment(torch, dev, runner, inp, launches: int, errs: float) -> dict:
+    """The fused-segment kernel at the runner's largest config-5 batch (the
+    batch phase 5 timed the fused-detect kernel on), cell 256: kernel, plain
+    version, bound and ``embedding_bag`` with one bag per (document, cell)."""
+    from spark_languagedetector_tpu_torch.api.runner import SEGMENT_CELL as cell
+    from spark_languagedetector_tpu_torch.ops import score_fused as SF
+
+    lay = runner.layout
+    B, S = inp.batch.shape
+    L = lay.n_langs
+    C = -(-S // cell)
+    got = SF.fused_segment_kernel(inp, runner.table, runner.scales, lay, cell)
+    torch.cuda.synchronize()
+    ref = SF.fused_segment_plain(inp, runner.table, runner.scales, lay, cell)
+    err = float((got - ref).abs().max())
+    if not torch.allclose(got, ref, atol=ATOL, rtol=RTOL):
+        fail(f"config-5 batch: fused_segment differs from the plain version ({err:.3g})")
+    say("times", f"config-5 batch B={B} x S={S}, cell {cell} ({C} cells): fused_segment vs "
+        f"plain max abs err {err:.3g}")
+    ms = cuda_ms(torch, lambda: SF.fused_segment_kernel(
+        inp, runner.table, runner.scales, lay, cell), reps=20)
+    plain_ms = cuda_ms(torch, lambda: SF.fused_segment_plain(
+        inp, runner.table, runner.scales, lay, cell), reps=3, warmup=1)
+
+    # One bag per (document, cell): the rows of every length's windows that
+    # start in the cell, masked windows weighted 0.
+    bags, bag_w = [], []
+    for r, m in SF.window_rows(inp, lay):
+        padn = C * cell - r.shape[1]
+        bags.append(torch.nn.functional.pad(r, (0, padn)).reshape(B, C, cell))
+        bag_w.append(torch.nn.functional.pad(m, (0, padn)).reshape(B, C, cell))
+    bag = torch.cat(bags, dim=2).reshape(B * C, -1)
+    mask = torch.cat(bag_w, dim=2).reshape(B * C, -1)
+    weights = mask.to(torch.float32)
+    lib = lambda: torch.nn.functional.embedding_bag(  # noqa: E731
+        bag, runner.table, mode="sum", per_sample_weights=weights)
+    library_ms = cuda_ms(torch, lib, reps=3, warmup=1)
+    starts = torch.arange(C, device=dev)[None, :] * cell
+    live = (starts < inp.lengths[:, None]) & (starts < inp.lim[:, None])
+    lib_out = torch.where(live[..., None], lib().reshape(B, C, L) * runner.scales, 0.0)
+    say("times", f"embedding_bag (one bag per document and cell) vs fused_segment: max abs "
+        f"err {float((lib_out - got).abs().max()):.3g}")
+
+    # Bound: compulsory bytes (the inputs of fused_compulsory_inputs, the
+    # table rows touched, scales; the owned cells of the output written
+    # once) over the memory rate, against one multiply-add per distinct
+    # (document, cell, row) and language over the f32 rate.
+    _, _, in_bytes, touched = fused_compulsory_inputs(torch, SF, inp, lay)
+    bagid = torch.arange(B * C, device=dev)[:, None].expand_as(bag)
+    triples = int(torch.unique((bagid * lay.rows + bag)[mask]).numel())
+    owned = int(live.sum())
+    total_bytes = (in_bytes + touched * L * runner.table.element_size() + L * 4
+                   + owned * L * 4)
+    say("times", f"fused_segment: {int(mask.sum())} counted windows, {triples} distinct "
+        f"(doc, cell, row) triples, {touched} table rows touched, {owned} of {B * C} cells "
+        f"owned ({owned * L * 4 / 1e6:.1f} MB of a {B * C * L * 4 / 1e6:.1f} MB output)")
+    return _kernel_entry(
+        "fused_segment", "fused_segment.cu",
+        "spark_languagedetector_tpu/ops/score_fused.py:509", launches, max(errs, err),
+        ms, plain_ms, total_bytes, 2 * triples * L, library_ms)
+
+
+def phase_segment3(torch, dev, model3) -> None:
+    """The non-fused route: the config-3 model (hybrid, cuckoo membership)
+    segments a smaller code-switched corpus through the gather cell scorer
+    and matches the host float64 oracle. No kernel runs on this route."""
+    from spark_languagedetector_tpu_torch import Table
+    from spark_languagedetector_tpu_torch.api.runner import SEGMENT_CELL
+    from spark_languagedetector_tpu_torch.ops.score import window_scores_numpy
+
+    langs = list(model3.profile.languages)
+    cs_docs, truth = make_codeswitch_corpus(langs, 60, seed=29)
+    texts = cs_docs + make_corpus(langs[:1], 1, mean_len=20000, seed=5)[0] + ["", "\x01"]
+    byte_docs = [t.encode() for t in texts]
+    seg = model3.copy({"resultMode": "segment"})
+    runner = seg.runner
+    if runner.strategy != "hybrid":
+        fail(f"config 3 should segment from a hybrid runner, got {runner.strategy!r}")
+    reset_launches()
+    t0 = time.perf_counter()
+    results = [json.loads(v) for v in
+               seg.transform(Table({"fulltext": texts})).column("lang").tolist()]
+    torch.cuda.synchronize()
+    seg_s = time.perf_counter() - t0
+    launches = read_launches()
+    if any(launches.values()):
+        fail(f"the gather cell route launched a kernel: {launches}")
+    cells, _ = runner.segment_cells(byte_docs)
+    w, sorted_ids = model3.profile.host_arrays()
+    oracle = window_scores_numpy(byte_docs, w, sorted_ids, model3.profile.spec, SEGMENT_CELL)
+    err = check_cells("config-3 gather cells vs host f64", cells, oracle, CELL_ATOL, RTOL)
+    f1 = macro_span_f1(truth, results, [len(d) for d in byte_docs])
+    say("segment3", f"config 3 ({len(langs)} languages, strategy={runner.strategy}) segmented "
+        f"{len(texts)} docs through window_scores_batch_cuckoo in {seg_s:.2f}s (first call; "
+        f"uncalibrated): cells max abs err {err:.3g} vs window_scores_numpy (atol {CELL_ATOL}); "
+        f"byte-span macro F1 {f1:.4f}")
+    if f1 < SPAN_F1_GATE:
+        fail(f"config-3 segmentation span F1 {f1:.4f} below the gate {SPAN_F1_GATE}")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--quick", action="store_true",
@@ -1017,15 +1417,21 @@ def main() -> None:
     phase_build(KERNELS)
     kernel_err = phase_kernels(torch, dev)
     hist_errs = phase_kernels_hist(torch, dev)
+    segment_err = phase_kernels_segment(torch, dev)
     if args.quick:
         say("done", f"quick run ok in {time.perf_counter() - t_start:.1f}s")
         return
-    model, runner, quant_runners, eval_docs, launches = phase_main(torch, dev)
-    c5_err, times = phase_times(torch, dev, model, runner, quant_runners, eval_docs)
+    model, runner, quant_runners, main_docs, main_ids, eval_docs, launches = phase_main(
+        torch, dev)
+    c5_err, times, c5_inp = phase_times(torch, dev, model, runner, quant_runners, eval_docs)
     model3, runner3, eval3, launches3 = phase_config3(torch, dev)
     runner10, launches10 = phase_kernel5(torch, dev)
     hist_entries = phase_times_hist(torch, dev, model3, runner3, runner10, eval3,
                                     launches3, launches10, hist_errs)
+    seg_launches, seg_path_err = phase_segment(torch, dev, model, main_ids, main_docs)
+    segment_entry = phase_times_segment(torch, dev, runner, c5_inp, seg_launches,
+                                        max(segment_err, seg_path_err))
+    phase_segment3(torch, dev, model3)
     bad = [k for k in ("jax", "jaxlib", "spark_languagedetector_tpu") if k in sys.modules]
     if bad:
         fail(f"JAX modules were imported: {bad}")
@@ -1039,7 +1445,7 @@ def main() -> None:
         "launches": launches,
         "max_abs_err": max(kernel_err, c5_err),
         **times,
-    }] + hist_entries}))
+    }, segment_entry] + hist_entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,8 @@
 """Micro-batching runner: documents → padded device batches → scores or labels.
 
 Port of ``spark_languagedetector_tpu.api.runner.BatchRunner`` for the
-``score`` / ``predict_ids`` / ``predict`` path:
+``score`` / ``predict_ids`` / ``predict`` path and segment mode's
+``segment_cells``:
 
 * documents are grouped into padded-length buckets and byte-budgeted
   micro-batches (``exec.core.plan_micro_batches``), so the device sees a
@@ -12,7 +13,12 @@ Port of ``spark_languagedetector_tpu.api.runner.BatchRunner`` for the
   rows are summed before the argmax, so chunked documents label exactly;
 * ``max_score_bytes`` scores only a UTF-8-safe prefix of each document;
 * in label mode the argmax runs on the device and only labels (plus the
-  few score rows of chunked documents) are fetched.
+  few score rows of chunked documents) are fetched;
+* in segment mode (:meth:`BatchRunner.segment_cells`) the device returns one
+  score vector per cell of ``SEGMENT_CELL`` window starts; long documents
+  chunk on a cell-aligned stride, so each cell is owned by one chunk. A
+  fused runner scores cells with the CUDA fused-segment kernel, every other
+  strategy with the gather cell scorer (dense, LUT or cuckoo).
 
 Strategies, chosen by ``auto`` in this order (the JAX package's accelerator
 order; the choice does not depend on the device — on the CPU each strategy
@@ -70,6 +76,9 @@ DEFAULT_HEAVY_BATCH_SIZE = 1024
 # Cap on one micro-batch's padded bytes.
 MAX_BATCH_BYTES = 8 << 20
 STRATEGIES = ("auto", "fused", "pallas", "hybrid", "hist", "gather")
+# Segment-mode cell width: window start positions per device score vector
+# (a multiple of 128; the JAX package's default).
+SEGMENT_CELL = 256
 
 
 @dataclass(frozen=True)
@@ -157,6 +166,10 @@ class BatchRunner:
         if lut is not None and self.cuckoo is not None:
             raise ValueError("pass a LUT or a cuckoo table for membership, not both")
         self.num_langs = w.shape[1]
+        # Host membership, kept for the gather cell scorer's operands, which
+        # are uploaded on the first segment request of a non-fused runner.
+        self._host_weights, self._host_lut = w, lut
+        self._cell_operands = None
         fused_ok = score_fused.fused_supported(
             self.spec, w.shape[0], w.shape[1], lut=lut, cuckoo=self.cuckoo
         )
@@ -400,6 +413,53 @@ class BatchRunner:
             block=block, window_limit=window_limit, gram_lengths_subset=subset,
         )
 
+    def _gather_cell_operands(self):
+        """(table, lut, cuckoo entries) of the gather cell scorer on the
+        device: the profile's own f32 membership. The gather strategies hold
+        it already; the kernel strategies upload it on first use."""
+        if self._cell_operands is None:
+            dev = self.device
+            table, lut, entries = self.table, self.table_lut, self._cuckoo_entries
+            if table is None:
+                table = torch.from_numpy(self._host_weights).to(dev)
+                if self.cuckoo is not None:
+                    entries = torch.from_numpy(self.cuckoo.entries()).to(dev)
+                elif self._host_lut is not None:
+                    lut = torch.from_numpy(self._host_lut).to(dev)
+                self._table_bytes += sum(
+                    t.numel() * t.element_size()
+                    for t in (table, lut, entries) if t is not None
+                )
+            self._cell_operands = (table, lut, entries)
+        return self._cell_operands
+
+    def _window_scores_device(self, batch, lengths, window_limit, cell) -> torch.Tensor:
+        """Gather-formulation per-cell scorer: segment mode's exactness
+        oracle, and the route of every non-fused strategy (the bigram and
+        row-histogram kernels have no per-cell form)."""
+        table, lut, entries = self._gather_cell_operands()
+        if self.cuckoo is not None:
+            return score_ops.window_scores_batch_cuckoo(
+                batch, lengths, table, entries,
+                seed1=self.cuckoo.seed1, seed2=self.cuckoo.seed2, spec=self.spec,
+                cell=cell, block=min(self.block, 1024), window_limit=window_limit,
+            )
+        return score_ops.window_scores_batch(
+            batch, lengths, table, lut, spec=self.spec, cell=cell,
+            block=min(self.block, 1024), window_limit=window_limit,
+        )
+
+    def _segment_dispatch_device(self, batch, lengths, window_limit, cell) -> torch.Tensor:
+        """One packed batch → f32 [B, ceil(pad_to / cell), L] raw cell
+        scores: the fused-segment kernel for a fused runner, the gather cell
+        scorer for every other strategy."""
+        if self.strategy == "fused":
+            return score_fused.segment_batch_fused(
+                batch, lengths, self.table, self.scales, self.table_lut, window_limit,
+                spec=self.spec, layout=self.layout, cell=cell,
+            )
+        return self._window_scores_device(batch, lengths, window_limit, cell)
+
     def _labels(self, batch, lengths, window_limit) -> torch.Tensor:
         if self.strategy == "fused":
             labels, _ = score_fused.detect_batch_fused(
@@ -423,13 +483,117 @@ class BatchRunner:
     def predict(self, byte_docs: Sequence[bytes], languages: Sequence[str]) -> list[str]:
         return [languages[i] for i in self.predict_ids(byte_docs)]
 
+    def scored_docs(self, byte_docs: Sequence[bytes]) -> list[bytes]:
+        """The documents as scored: cut to ``max_score_bytes`` where set
+        (UTF-8 documents at a character boundary)."""
+        cap = self.max_score_bytes
+        if not cap:
+            return list(byte_docs)
+        if self.score_encoding == UTF8:
+            return [truncate_utf8(d, cap) for d in byte_docs]
+        return [d[:cap] for d in byte_docs]
+
+    def segment_cells(
+        self, byte_docs: Sequence[bytes], *, cell: int | None = None
+    ) -> tuple[list[np.ndarray], list[bytes]]:
+        """Raw per-cell scores for span-level decoding.
+
+        Returns ``(cells, scored_docs)``: ``cells[i]`` is float32
+        ``[C_i, L]`` with ``C_i = max(1, ceil(len_i / cell))``; entry ``[c]``
+        sums every window (every gram length) whose start byte lies in
+        ``[c·cell, (c+1)·cell)`` of the document. ``scored_docs[i]`` is the
+        byte string the cells describe (the input after ``max_score_bytes``
+        truncation), so the host span decoder snaps boundaries on the
+        content that was scored.
+
+        Long documents chunk on a cell-aligned stride (the whole-doc path's
+        overlap rule rounded so that chunk ownership boundaries land on cell
+        boundaries), so every global cell is owned by exactly one chunk and
+        the assembled cells are exact. Cells past a batch's longest owned
+        range are padding and are not copied back. The whole-doc
+        ``score``/``predict_ids`` paths share none of this method's device
+        work.
+
+        Left out of the port on purpose, as in ``score``: duplicate-document
+        folding, dispatch threads, telemetry spans, and the retry / circuit
+        breaker / degradation ladder. A failure of the kernel raises.
+        """
+        cell = int(cell or SEGMENT_CELL)
+        if cell < 128 or cell % 128:
+            raise ValueError(
+                f"segment cell must be a positive multiple of 128, got {cell}"
+            )
+        if cell > self.max_chunk:
+            raise ValueError(
+                f"segment cell {cell} exceeds the largest length bucket "
+                f"{self.max_chunk}"
+            )
+        byte_docs = self.scored_docs(byte_docs)
+        L = self.num_langs
+        out: list[np.ndarray] = []
+        if not byte_docs:
+            return [], []
+
+        overlap = max(self.spec.gram_lengths) - 1
+        # Cell-aligned chunk stride: ownership boundaries must land on cell
+        # edges so each global cell belongs to exactly one chunk.
+        stride = ((self.max_chunk - overlap) // cell) * cell
+
+        # Work items: (doc index, chunk bytes, window limit, global cell
+        # offset, owned cell count).
+        doc_idx: list[int] = []
+        chunks: list[bytes] = []
+        limits: list[int] = []
+        cell_offs: list[int] = []
+        takes: list[int] = []
+        for i, doc in enumerate(byte_docs):
+            n_cells = max(1, -(-len(doc) // cell))
+            out.append(np.zeros((n_cells, L), dtype=np.float32))
+            if len(doc) <= self.max_chunk:
+                doc_idx.append(i)
+                chunks.append(doc)
+                limits.append(self.max_chunk)
+                cell_offs.append(0)
+                takes.append(n_cells)
+                continue
+            if stride < cell:
+                # Only a document that needs chunking needs the stride;
+                # single-chunk documents segment even when max_chunk leaves
+                # no room for one.
+                raise ValueError(
+                    f"document of {len(doc)} bytes needs chunking, but "
+                    f"segment cell {cell} leaves no cell-aligned chunk "
+                    f"stride under max_chunk {self.max_chunk} "
+                    f"(overlap {overlap})"
+                )
+            parts = chunk_document(doc, stride + overlap, overlap)
+            for j, part in enumerate(parts):
+                doc_idx.append(i)
+                chunks.append(part)
+                off = j * stride // cell
+                cell_offs.append(off)
+                if j < len(parts) - 1:
+                    limits.append(stride)
+                    takes.append(stride // cell)
+                else:
+                    limits.append(self.max_chunk)
+                    takes.append(n_cells - off)
+        limits_arr = np.asarray(limits, dtype=np.int64)
+
+        for sel, pad_to in self.plan([len(c) for c in chunks]):
+            batch, lengths, window_limit = self._to_device(
+                [chunks[k] for k in sel], limits_arr[sel], pad_to
+            )
+            cells = self._segment_dispatch_device(batch, lengths, window_limit, cell)
+            # Cells past the longest owned range of the batch are padding.
+            host = cells[:, : max(takes[k] for k in sel)].cpu().numpy()
+            for r, k in enumerate(sel):
+                off, take = cell_offs[k], takes[k]
+                out[doc_idx[k]][off : off + take] = host[r, :take]
+        return out, byte_docs
+
     def _execute(self, byte_docs: Sequence[bytes], *, want_labels: bool) -> np.ndarray:
-        if self.max_score_bytes:
-            cap = self.max_score_bytes
-            if self.score_encoding == UTF8:
-                byte_docs = [truncate_utf8(d, cap) for d in byte_docs]
-            else:
-                byte_docs = [d[:cap] for d in byte_docs]
+        byte_docs = self.scored_docs(byte_docs)
         N = len(byte_docs)
         L = self.num_langs
         out = (

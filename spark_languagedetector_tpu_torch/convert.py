@@ -10,7 +10,10 @@ arrays and needs no import of that package here::
         p.languages, p.ids, p.weights, device="cuda",
     )
 
-Both packages then score the same profile with the same semantics. An exact
+Both packages then score the same profile with the same semantics. A fitted
+calibration crosses as its plain dict (``jax_model.calibration.to_dict()``,
+floats and JSON only) through ``calibration=``, so a JAX-calibrated model
+segments identically in the port. An exact
 profile with gram lengths 4..5 crosses the same way: its runner rebuilds the
 cuckoo table, the bucket table and the dense n <= 2 sub-table from the ids
 and weights, bit-identical to the JAX runner's (same seed streams).
@@ -25,6 +28,7 @@ import numpy as np
 from .models.estimator import LanguageDetectorModel
 from .models.profile import GramProfile
 from .ops.vocab import VocabSpec
+from .segment.calibrate import Calibration
 
 
 def profile_from_arrays(
@@ -59,12 +63,17 @@ def model_from_arrays(
     weights,
     *,
     device: str | None = None,
+    calibration: dict | None = None,
 ) -> LanguageDetectorModel:
     """:func:`profile_from_arrays` wrapped in a :class:`LanguageDetectorModel`
-    that runs on ``device`` (None ⇒ the CUDA card)."""
-    return LanguageDetectorModel(
+    that runs on ``device`` (None ⇒ the CUDA card). ``calibration`` is the
+    ``Calibration.to_dict()`` state of a calibrated model, or None."""
+    model = LanguageDetectorModel(
         profile_from_arrays(
             mode, gram_lengths, hash_bits, hash_scheme, languages, ids, weights
         ),
         device=device,
     )
+    if calibration is not None:
+        model.calibration = Calibration.from_dict(calibration)
+    return model

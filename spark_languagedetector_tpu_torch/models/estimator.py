@@ -1,23 +1,32 @@
 """LanguageDetector (Estimator) and LanguageDetectorModel (Model/Transformer).
 
-Port of ``spark_languagedetector_tpu.models.estimator`` in label mode: the
-reference's Spark ML pair with the same Params, defaults and validation
-messages (``inputCol="fulltext"``, ``labelCol``/``outputCol="lang"``). Fit
-builds a columnar :class:`GramProfile` with the host numpy fit (exact gram
-lengths up to 5, or hashed); transform ships micro-batches through
+Port of ``spark_languagedetector_tpu.models.estimator``: the reference's
+Spark ML pair with the same Params, defaults and validation messages
+(``inputCol="fulltext"``, ``labelCol``/``outputCol="lang"``). Fit builds a
+columnar :class:`GramProfile` with the host numpy fit (exact gram lengths up
+to 5, or hashed); transform ships micro-batches through
 :class:`~..api.runner.BatchRunner`, whose CUDA kernels label documents on the
 card (the fused kernel for dense and LUT profiles; the bigram and
 row-histogram kernels of the hybrid strategy for exact n = 4..5 profiles).
 
+``resultMode="segment"`` switches ``transform``/``detect`` to the
+segmentation result type: byte-offset spans, calibrated top-k languages and
+the unknown reject, decoded by :func:`..segment.segment_documents` over the
+runner's per-cell device scores (the CUDA fused-segment kernel for a fused
+runner). ``calibrate(heldout)`` fits the per-language temperatures the
+calibrated probabilities use; an uncalibrated model segments with T = 1.0
+and stamps ``calibrated: false`` on every result.
+
 Where the JAX package had a ``backend`` switch, the port has ``device``:
 None means the CUDA card (and raises when there is none); ``"cpu"`` runs
-the plain PyTorch versions. ``fitBackend="device"``, ``resultMode="segment"``
-and model persistence belong to later slices of the port and raise
+the plain PyTorch versions. ``fitBackend="device"`` and model persistence
+(the calibration's included) belong to later slices of the port and raise
 NotImplementedError.
 """
 
 from __future__ import annotations
 
+import json
 from typing import Sequence
 
 import numpy as np
@@ -34,6 +43,8 @@ from ..ops.vocab import (
     MAX_EXACT_GRAM_LEN,
     VocabSpec,
 )
+from ..segment import SegmentOptions, segment_documents
+from ..segment.calibrate import Calibration, fit_calibration, normalize_scores
 from ..utils.device import resolve_device
 from .profile import GramProfile
 
@@ -64,13 +75,15 @@ class _ResultModeParams:
     result_mode = Param(
         "resultMode",
         "transform output type: 'label' (the reference's one-language "
-        "argmax column) or 'segment' (span-level code-switch decode; not in "
-        "the PyTorch port yet)",
+        "argmax column) or 'segment' (span-level code-switch decode: the "
+        "output column carries a JSON object per document with byte-"
+        "offset spans, calibrated top-k languages, and the unknown reject)",
         lambda v: v in RESULT_MODES,
     )
     top_k = Param(
         "topK",
-        "segment mode: candidate languages returned per document",
+        "segment mode: candidate languages returned per document with "
+        "calibrated probabilities",
         _positive_int,
     )
     reject_threshold = Param(
@@ -346,6 +359,9 @@ class LanguageDetectorModel(HasInputCol, HasOutputCol, _ResultModeParams, _Devic
         if device is not None:
             self.set("device", device)
         self._runner: BatchRunner | None = None
+        # Per-language temperature calibration (segment.calibrate): not a
+        # Param, fitted state. None ⇒ segment results say calibrated: false.
+        self.calibration: Calibration | None = None
 
     @staticmethod
     def from_gram_map(
@@ -441,12 +457,18 @@ class LanguageDetectorModel(HasInputCol, HasOutputCol, _ResultModeParams, _Devic
         return self._runner
 
     def transform(self, dataset: Table) -> Table:
-        if self.get("resultMode") == "segment":
-            raise _later_slice("resultMode='segment'")
         out_schema = self.transform_schema(dataset.schema)
         texts = dataset.column(self.get_input_col()).tolist()
         docs = texts_to_bytes(texts, self.get("predictEncoding"))
-        detected = self.runner.predict(docs, self.profile.languages)
+        if self.get("resultMode") == "segment":
+            # One canonical JSON object per document (sort_keys ⇒ byte-
+            # stable for identical results), in the same STRING column as
+            # label mode, so every Table consumer composes unchanged.
+            detected = [
+                json.dumps(r, sort_keys=True) for r in self.segment_bytes(docs)
+            ]
+        else:
+            detected = self.runner.predict(docs, self.profile.languages)
         result = dataset.with_column(self.get_output_col(), detected, STRING)
         if result.schema != out_schema:
             raise RuntimeError(
@@ -455,8 +477,70 @@ class LanguageDetectorModel(HasInputCol, HasOutputCol, _ResultModeParams, _Devic
             )
         return result
 
-    def detect(self, text: str) -> str:
-        """Single-document convenience (the reference's static ``detect``)."""
+    def detect(self, text: str):
+        """Single-document convenience (the reference's static ``detect``).
+        In ``resultMode="segment"`` this returns the decoded result dict
+        (spans, top-k, reject) instead of one label string."""
+        if self.get("resultMode") == "segment":
+            return self.segment([text])[0]
         return self.transform(Table({self.get_input_col(): [text]})).column(
             self.get_output_col()
         )[0]
+
+    # -- segmentation ----------------------------------------------------------
+    def _segment_options(self) -> SegmentOptions:
+        return SegmentOptions(
+            top_k=int(self.get("topK")),
+            reject_threshold=float(self.get("rejectThreshold")),
+        )
+
+    def segment(self, texts: Sequence[str]) -> list[dict]:
+        """Span-level code-switch decode for ``texts``: one dict per document
+        with byte-offset ``spans``, calibrated ``topk`` candidates and the
+        ``unknown`` reject, regardless of the ``resultMode`` param
+        (``transform`` consults the param; this method is segment mode)."""
+        return self.segment_bytes(
+            texts_to_bytes(list(texts), self.get("predictEncoding"))
+        )
+
+    def segment_bytes(self, byte_docs: Sequence[bytes]) -> list[dict]:
+        return segment_documents(
+            self.runner,
+            byte_docs,
+            self.profile.languages,
+            options=self._segment_options(),
+            calibration=self.calibration,
+        )
+
+    def calibrate(
+        self, heldout: Table, *, label_col: str = "lang"
+    ) -> "LanguageDetectorModel":
+        """Fit the per-language temperature calibration on a held-out
+        labeled table (``inputCol`` text + ``label_col`` true language).
+        Deterministic (fixed grids, no RNG); the fitted state lives on
+        ``self.calibration`` and stamps every segment result
+        ``calibrated: true``. Returns ``self``.
+        """
+        texts = heldout.column(self.get_input_col()).tolist()
+        labels = heldout.column(label_col).tolist()
+        langs = list(self.profile.languages)
+        lang_idx = {l: i for i, l in enumerate(langs)}
+        unknown = sorted({l for l in labels if l not in lang_idx})
+        if unknown:
+            raise ValueError(
+                f"held-out labels {unknown} not in supportedLanguages"
+            )
+        docs = texts_to_bytes(texts, self.get("predictEncoding"))
+        runner = self.runner
+        scores = runner.score(docs)
+        # Length-normalize by the byte count the runner scored
+        # (maxScoreBytes truncation included): the transform the segment
+        # decode applies, or the temperatures would be fit on another logit
+        # scale than they are used on.
+        lens = [len(d) for d in runner.scored_docs(docs)]
+        self.calibration = fit_calibration(
+            normalize_scores(np.asarray(scores, dtype=np.float64), lens),
+            np.asarray([lang_idx[l] for l in labels], dtype=np.int64),
+            len(langs),
+        )
+        return self

@@ -11,8 +11,8 @@ all started together).
 
 Libraries land in ``build/kernels/`` at the root of a source checkout, or,
 for an installed package, in a per-user cache directory; either way they are
-named by a hash of their source and flags, so an edited source never loads a
-stale build.
+named by a hash of their source, the shared headers (``csrc/*.cuh``) and the
+flags, so an edited source never loads a stale build.
 """
 
 from __future__ import annotations
@@ -86,8 +86,10 @@ class CudaKernel:
 
     @property
     def library_path(self) -> Path:
+        # The shared headers count too: a source may include any of them.
+        headers = b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
         digest = hashlib.sha256(
-            self.source.read_bytes() + " ".join(NVCC_FLAGS).encode()
+            self.source.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
         ).hexdigest()[:16]
         return BUILD_DIR / f"lib{self.name}_{digest}.so"
 
@@ -147,6 +149,16 @@ FUSED_DETECT = CudaKernel(
     + [ctypes.POINTER(ctypes.c_uint)] * 2 + [_p],
     _i,
 )
+# batch, lengths, lim, prow, rows, wq, scales, out; B, S, cell, C, K, W, R, L,
+# dtype, n_inline; the inline plan's four arrays; stream
+FUSED_SEGMENT = CudaKernel(
+    "fused_segment",
+    "fused_segment.cu",
+    "fused_segment_launch",
+    [_p] * 8 + [_i] * 10 + [ctypes.POINTER(_i)] * 2
+    + [ctypes.POINTER(ctypes.c_uint)] * 2 + [_p],
+    _i,
+)
 # rows, vmax, out; B, K, W, R, miss; stream
 ROW_HIST = CudaKernel(
     "row_hist", "row_hist.cu", "row_hist_launch", [_p] * 3 + [_i] * 5 + [_p], _i
@@ -161,7 +173,7 @@ BIGRAM_SCORE = CudaKernel(
     "bigram_score", "bigram_score.cu", "bigram_score_launch",
     [_p] * 6 + [_i] * 5 + [_p], _i,
 )
-KERNELS = (FUSED_DETECT, ROW_HIST, BIGRAM_HIST, BIGRAM_SCORE)
+KERNELS = (FUSED_DETECT, FUSED_SEGMENT, ROW_HIST, BIGRAM_HIST, BIGRAM_SCORE)
 
 
 def build_all(

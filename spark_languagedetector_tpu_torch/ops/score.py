@@ -1,7 +1,9 @@
 """Batch scoring by row gather: padded byte batches → per-language scores.
 
 Port of the gather half of ``spark_languagedetector_tpu.ops.score``: the
-explicit ``strategy="gather"`` of the runner and the tests' reference.
+explicit ``strategy="gather"`` of the runner and the tests' reference, for
+whole documents (``score_batch*``) and per cell (``window_scores_batch*``,
+segment mode's exactness oracle and the route of every non-fused strategy).
 
 * dense (``lut`` None): the weight table covers the whole id space and
   window ids index it directly;
@@ -202,6 +204,171 @@ def score_batch_cuckoo(
     return total
 
 
+# ------------------------------------------- per-window (cell) scoring ------
+#
+# Segment mode: instead of folding every window's contribution into one
+# [B, L] document score, contributions are kept per CELL, a fixed span of
+# ``cell`` consecutive window start positions. A window starting at byte s
+# belongs to cell s // cell whatever its gram length, so the per-cell tensors
+# of all lengths align and sum. Summing a document's cells restores the
+# whole-doc score up to f32 reduction order.
+
+
+def _cell_accumulate(
+    weights: torch.Tensor,
+    rows: torch.Tensor,
+    mask: torch.Tensor,
+    cell: int,
+    n_cells: int,
+    block: int,
+) -> torch.Tensor:
+    """Σ_w weights[rows[b, w]] · mask[b, w] by window cell → f32
+    [B, n_cells, L], in window blocks (the block rounded to a whole number
+    of cells, so no block straddles a cell boundary)."""
+    B, W = rows.shape
+    L = weights.shape[1]
+    blk = max(cell, (block // cell) * cell)
+    full = n_cells * cell
+    if full > W:
+        rows = torch.nn.functional.pad(rows, (0, full - W))
+        mask = torch.nn.functional.pad(mask, (0, full - W))
+    acc = torch.zeros((B, n_cells, L), dtype=torch.float32, device=rows.device)
+    for s in range(0, full, blk):
+        r = rows[:, s : s + blk]
+        m = mask[:, s : s + blk]
+        contrib = weights[r] * m[..., None].to(weights.dtype)
+        c0 = s // cell
+        acc[:, c0 : c0 + r.shape[1] // cell] += (
+            contrib.reshape(B, -1, cell, L).sum(dim=2).float()
+        )
+    return acc
+
+
+def window_scores_batch(
+    batch: torch.Tensor,
+    lengths: torch.Tensor,
+    weights: torch.Tensor,
+    lut: torch.Tensor | None,
+    *,
+    spec: VocabSpec,
+    cell: int,
+    block: int = DEFAULT_BLOCK,
+    window_limit: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Per-cell scores for a padded batch (gather strategies): float32
+    [B, ceil(S / cell), L] where entry ``[b, c]`` sums every window of every
+    gram length whose start position lies in ``[c·cell, (c+1)·cell)``.
+    Masking, the partial-window splice into window 0 and ``window_limit``
+    chunk ownership are exactly those of :func:`score_batch`; the partial
+    window of a short document lands in cell 0. The gather formulation is
+    segment mode's exactness oracle and the route of every non-fused
+    strategy."""
+    if lut is not None and lut.numel() == 0:
+        lut = None
+    B, S = batch.shape
+    n_cells = -(-S // cell)
+    miss_row = weights.shape[0] - 1 if lut is not None else 0
+    total = torch.zeros(
+        (B, n_cells, weights.shape[1]), dtype=torch.float32, device=batch.device
+    )
+    for n in spec.gram_lengths:
+        ids = window_ids(batch, n, spec)
+        rows = ids if lut is None else lut[ids].long()
+        partial_rows = _partial_window_rows(
+            batch, lengths, n, ids[:, 0], spec, lut, miss_row
+        )
+        rows, mask = _splice_partial_windows(
+            rows, partial_rows, lengths, n, window_limit
+        )
+        total += _cell_accumulate(weights, rows, mask, cell, n_cells, block)
+    return total
+
+
+def window_scores_batch_cuckoo(
+    batch: torch.Tensor,
+    lengths: torch.Tensor,
+    weights: torch.Tensor,
+    entries: torch.Tensor,
+    *,
+    seed1: int,
+    seed2: int,
+    spec: VocabSpec,
+    cell: int,
+    block: int = DEFAULT_BLOCK,
+    window_limit: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """:func:`window_scores_batch` for packed-key cuckoo membership (exact
+    gram lengths 4..5): the two-probe row resolution of
+    :func:`score_batch_cuckoo`, summed per cell."""
+    if spec.mode != EXACT:
+        raise ValueError(
+            "window_scores_batch_cuckoo needs an exact vocab spec — hashed "
+            "specs use integer-id scoring (window_scores_batch)"
+        )
+    B, S = batch.shape
+    n_cells = -(-S // cell)
+    G = weights.shape[0] - 1
+    total = torch.zeros(
+        (B, n_cells, weights.shape[1]), dtype=torch.float32, device=batch.device
+    )
+    for n in spec.gram_lengths:
+        lo, hi = window_keys(batch, n)
+        rows = _cuckoo_rows(lo, hi, entries, G, seed1, seed2)
+        plo, phi = partial_window_keys(batch, lengths, n)
+        prows = _cuckoo_rows(plo, phi, entries, G, seed1, seed2)
+        prows = torch.where(lengths > 0, prows, G)
+        rows, mask = _splice_partial_windows(rows, prows, lengths, n, window_limit)
+        total += _cell_accumulate(weights, rows, mask, cell, n_cells, block)
+    return total
+
+
+def _host_rows(
+    ids: np.ndarray, weights: np.ndarray, sorted_ids: np.ndarray | None
+) -> np.ndarray:
+    """weights rows of ``ids`` on the host: direct for the dense table,
+    binary-search membership (misses → the zeros row G) for compact ones."""
+    if sorted_ids is None:
+        return weights[ids]
+    if len(sorted_ids) == 0:
+        return weights[np.full(len(ids), weights.shape[0] - 1)]
+    pos = np.searchsorted(sorted_ids, ids)
+    pos_c = np.minimum(pos, len(sorted_ids) - 1)
+    hit = sorted_ids[pos_c] == ids
+    return weights[np.where(hit, pos_c, weights.shape[0] - 1)]
+
+
+def window_scores_numpy(
+    byte_docs: list[bytes],
+    weights: np.ndarray,
+    sorted_ids: np.ndarray | None,
+    spec: VocabSpec,
+    cell: int,
+) -> list[np.ndarray]:
+    """Host mirror of :func:`window_scores_batch` in float64 (the oracle):
+    per document a ``[max(1, ceil(len / cell)), L]`` array; window start →
+    cell ``start // cell``; a short document's partial windows land in
+    cell 0. ``weights``/``sorted_ids`` as for :func:`score_batch_numpy`."""
+    L = weights.shape[1]
+    out = []
+    for doc in byte_docs:
+        acc = np.zeros((max(1, -(-len(doc) // cell)), L), dtype=np.float64)
+        arr = np.frombuffer(doc, dtype=np.uint8)[None, :]
+        for n in spec.gram_lengths:
+            if len(doc) >= n:
+                ids = np.asarray(window_ids_numpy(arr, n, spec)[0], np.int64)
+                np.add.at(
+                    acc, np.arange(len(ids)) // cell,
+                    _host_rows(ids, weights, sorted_ids),
+                )
+        short = short_doc_ids_numpy(doc, spec)
+        if short:
+            acc[0] += _host_rows(
+                np.asarray(short, dtype=np.int64), weights, sorted_ids
+            ).sum(axis=0)
+        out.append(acc)
+    return out
+
+
 def argmax_language(scores: torch.Tensor) -> torch.Tensor:
     """[B, L] → int32 [B]; first maximum wins (reference tie/zero behavior)."""
     return torch.argmax(scores, dim=1).to(torch.int32)
@@ -231,16 +398,5 @@ def score_batch_numpy(
             ids_all.append(np.asarray(short, dtype=np.int64))
         if not ids_all:
             continue
-        ids = np.concatenate(ids_all)
-        if sorted_ids is None:
-            out[i] = weights[ids].sum(axis=0)
-            continue
-        if len(sorted_ids) == 0:
-            rows = np.full(len(ids), weights.shape[0] - 1)
-        else:
-            pos = np.searchsorted(sorted_ids, ids)
-            pos_c = np.minimum(pos, len(sorted_ids) - 1)
-            hit = sorted_ids[pos_c] == ids
-            rows = np.where(hit, pos_c, weights.shape[0] - 1)
-        out[i] = weights[rows].sum(axis=0)
+        out[i] = _host_rows(np.concatenate(ids_all), weights, sorted_ids).sum(axis=0)
     return out

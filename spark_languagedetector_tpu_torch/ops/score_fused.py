@@ -1,10 +1,12 @@
-"""The fused detect kernel: window → id → row → accumulate → scale → argmax.
+"""The fused kernels: window → id → row → accumulate → scale (→ argmax).
 
-Port of ``spark_languagedetector_tpu.ops.score_fused`` (whole-document
-scoring; the segment-mode kernel is a later slice). The TPU kernel it
-replaces is ``ops/score_fused.py::_build_fused_kernel``; here the kernel is
-hand-written CUDA C++ for Hopper (``csrc/fused_detect.cu``, whose header
-says what bounds it on the card and what its design does about that).
+Port of ``spark_languagedetector_tpu.ops.score_fused``: whole-document
+scoring and segment mode's per-cell scoring. The TPU kernels they replace
+are ``ops/score_fused.py::_build_fused_kernel`` and
+``::_build_fused_segment_kernel``; here each is hand-written CUDA C++ for
+Hopper (``csrc/fused_detect.cu`` and ``csrc/fused_segment.cu``, whose
+headers say what bounds them on the card and what their design does about
+that; ``csrc/fused_common.cuh`` holds what the two share).
 
 The table layout is semantics and is kept: :func:`build_fused_tables` lays a
 profile out so that
@@ -20,10 +22,11 @@ profile out so that
 The TPU layout's (8, 128) padding, shifted byte planes and streamed table
 tiles were Mosaic workarounds and are gone.
 
-Beside the kernel sits its plain PyTorch version (:func:`fused_plain`), the
-same function on the same inputs. :func:`fused_detect` is the wrapper: it
-takes the plain version only for tensors on the CPU; on a CUDA tensor it
-launches the kernel or raises.
+Beside each kernel sits its plain PyTorch version (:func:`fused_plain`,
+:func:`fused_segment_plain`), the same function on the same inputs.
+:func:`fused_detect` and :func:`fused_segment` are the wrappers: they take
+the plain version only for tensors on the CPU; on a CUDA tensor they launch
+the kernel or raise.
 """
 
 from __future__ import annotations
@@ -36,7 +39,7 @@ import numpy as np
 import torch
 
 from ..models.profile import QUANT_DTYPES, quantize_weights
-from ._kernels import FUSED_DETECT, check_operand
+from ._kernels import FUSED_DETECT, FUSED_SEGMENT, check_operand
 from .score import _splice_partial_windows
 from .vocab import (
     _EXACT12_BASE,
@@ -58,7 +61,7 @@ _KIND_CODE = {POLY: 0, FNV_MASK: 1, FNV_FOLD: 2}
 _DTYPE_CODE = {torch.float32: 0, torch.int16: 1, torch.int8: 2}
 _TORCH_DTYPE = {None: torch.float32, "int16": torch.int16, "int8": torch.int8}
 
-_MAX_INLINE = 8  # csrc/fused_detect.cu kMaxInline
+_MAX_INLINE = 8  # csrc/fused_common.cuh kMaxInline
 _MAX_LANGS = 4096  # 1024 threads x 4 columns per thread
 
 
@@ -374,6 +377,78 @@ def fused_plain(
 # ------------------------------------------------- CUDA kernel -------------
 
 
+def _check_fused_operands(
+    kernel: str,
+    inp: FusedInputs,
+    wq: torch.Tensor,
+    scales: torch.Tensor,
+    layout: FusedLayout,
+    windows_per_sum: int,
+):
+    """What both C entry points assume of their operands, checked: CUDA,
+    dtype, shape and contiguity of every tensor, the layout's limits, and
+    that an int32 sum of ``windows_per_sum`` windows per gram length cannot
+    overflow. Returns the tail of both launches' arguments: ``(K, W, R, L,
+    dtype code, n_inline, the inline plan's four arrays)``."""
+    batch, lengths, lim, prow, rows = inp
+    dev = batch.device
+    if dev.type != "cuda":
+        raise ValueError(f"{kernel} needs CUDA tensors, got {dev}")
+    B = batch.shape[0]
+    R, L = layout.rows, layout.n_langs
+    check_operand(kernel, batch, "batch", torch.uint8, 2, dev)
+    check_operand(kernel, lengths, "lengths", torch.int32, 1, dev)
+    check_operand(kernel, lim, "lim", torch.int32, 1, dev)
+    check_operand(kernel, prow, "prow", torch.int32, 2, dev)
+    check_operand(kernel, wq, "wq", _TORCH_DTYPE[layout.quant], 2, dev)
+    check_operand(kernel, scales, "scales", torch.float32, 1, dev)
+    n_inline = len(layout.inline)
+    K = len(layout.rows_lengths)
+    if tuple(wq.shape) != (R, L) or tuple(scales.shape) != (L,):
+        raise ValueError(
+            f"{kernel}: table {tuple(wq.shape)} / scales {tuple(scales.shape)} "
+            f"disagree with the layout ({R}, {L})"
+        )
+    if lengths.shape[0] != B or lim.shape[0] != B or tuple(prow.shape) != (B, n_inline):
+        raise ValueError(f"{kernel}: per-document operands disagree with the batch")
+    if K:
+        if rows is None:
+            raise ValueError(f"{kernel}: the layout needs a rows plane")
+        check_operand(kernel, rows, "rows", torch.int32, 3, dev)
+        if rows.shape[0] != B or rows.shape[1] != K:
+            raise ValueError(f"{kernel}: rows plane disagrees with the layout")
+        W = rows.shape[2]
+    else:
+        W = 0
+    if n_inline > _MAX_INLINE or L > _MAX_LANGS:
+        raise ValueError(
+            f"{kernel} takes at most {_MAX_INLINE} inline lengths and "
+            f"{_MAX_LANGS} languages; got {n_inline} and {L}"
+        )
+    if layout.quant is not None:
+        # int32 accumulation: every window of every length at the int max
+        # must stay below 2^31.
+        qmax = QUANT_DTYPES[layout.quant][1]
+        if (n_inline + K) * max(windows_per_sum, 1) * qmax >= 2**31:
+            raise ValueError(
+                f"{kernel}: {n_inline + K} lengths x {windows_per_sum} windows x "
+                f"{qmax} could overflow the int32 accumulator"
+            )
+    ints = ctypes.c_int * max(n_inline, 1)
+    uints = ctypes.c_uint * max(n_inline, 1)
+    return (
+        K, W, R, L, _DTYPE_CODE[wq.dtype], n_inline,
+        ints(*[e[0] for e in layout.inline]),
+        ints(*[_KIND_CODE[e[1]] for e in layout.inline]),
+        uints(*[e[2] for e in layout.inline]),
+        uints(*[e[3] for e in layout.inline]),
+    )
+
+
+def _ptr(t: torch.Tensor | None):
+    return None if t is None else t.data_ptr()
+
+
 def fused_kernel(
     inp: FusedInputs,
     wq: torch.Tensor,
@@ -385,73 +460,22 @@ def fused_kernel(
     """Launch ``csrc/fused_detect.cu`` on the batch's CUDA stream (no
     synchronisation). Same inputs and outputs as :func:`fused_plain`."""
     batch, lengths, lim, prow, rows = inp
-    dev = batch.device
-    if dev.type != "cuda":
-        raise ValueError(f"fused kernel needs CUDA tensors, got {dev}")
     B, S = batch.shape
-    R, L = layout.rows, layout.n_langs
-    check_operand("fused kernel", batch, "batch", torch.uint8, 2, dev)
-    check_operand("fused kernel", lengths, "lengths", torch.int32, 1, dev)
-    check_operand("fused kernel", lim, "lim", torch.int32, 1, dev)
-    check_operand("fused kernel", prow, "prow", torch.int32, 2, dev)
-    check_operand("fused kernel", wq, "wq", _TORCH_DTYPE[layout.quant], 2, dev)
-    check_operand("fused kernel", scales, "scales", torch.float32, 1, dev)
-    n_inline = len(layout.inline)
-    K = len(layout.rows_lengths)
-    if tuple(wq.shape) != (R, L) or tuple(scales.shape) != (L,):
-        raise ValueError(
-            f"fused kernel: table {tuple(wq.shape)} / scales {tuple(scales.shape)} "
-            f"disagree with the layout ({R}, {L})"
-        )
-    if lengths.shape[0] != B or lim.shape[0] != B or tuple(prow.shape) != (B, n_inline):
-        raise ValueError("fused kernel: per-document operands disagree with the batch")
-    if K:
-        if rows is None:
-            raise ValueError("fused kernel: the layout needs a rows plane")
-        check_operand("fused kernel", rows, "rows", torch.int32, 3, dev)
-        if rows.shape[0] != B or rows.shape[1] != K:
-            raise ValueError("fused kernel: rows plane disagrees with the layout")
-        W = rows.shape[2]
-    else:
-        W = 0
-    if n_inline > _MAX_INLINE or L > _MAX_LANGS:
-        raise ValueError(
-            f"fused kernel takes at most {_MAX_INLINE} inline lengths and "
-            f"{_MAX_LANGS} languages; got {n_inline} and {L}"
-        )
-    if layout.quant is not None:
-        # int32 accumulation: every window of every length at the int max
-        # must stay below 2^31.
-        qmax = QUANT_DTYPES[layout.quant][1]
-        if (n_inline + K) * max(S, 1) * qmax >= 2**31:
-            raise ValueError(
-                f"fused kernel: {n_inline + K} lengths x {S} windows x {qmax} "
-                "could overflow the int32 accumulator"
-            )
+    tail = _check_fused_operands("fused kernel", inp, wq, scales, layout, S)
+    dev = batch.device
     labels = best = scores = None
     if want_labels:
         labels = torch.empty((B,), dtype=torch.int32, device=dev)
         best = torch.empty((B,), dtype=torch.float32, device=dev)
     else:
-        scores = torch.empty((B, L), dtype=torch.float32, device=dev)
+        scores = torch.empty((B, layout.n_langs), dtype=torch.float32, device=dev)
     if B == 0:
         return (labels, best) if want_labels else scores
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
-    ints = ctypes.c_int * max(n_inline, 1)
-    uints = ctypes.c_uint * max(n_inline, 1)
     with torch.cuda.device(dev):
         FUSED_DETECT.launch(
-            ptr(batch), ptr(lengths), ptr(lim), ptr(prow), ptr(rows),
-            ptr(wq), ptr(scales), ptr(scores), ptr(labels), ptr(best),
-            B, S, K, W, R, L, _DTYPE_CODE[wq.dtype], n_inline,
-            ints(*[e[0] for e in layout.inline]),
-            ints(*[_KIND_CODE[e[1]] for e in layout.inline]),
-            uints(*[e[2] for e in layout.inline]),
-            uints(*[e[3] for e in layout.inline]),
-            torch.cuda.current_stream(dev).cuda_stream,
+            _ptr(batch), _ptr(lengths), _ptr(lim), _ptr(prow), _ptr(rows),
+            _ptr(wq), _ptr(scales), _ptr(scores), _ptr(labels), _ptr(best),
+            B, S, *tail, torch.cuda.current_stream(dev).cuda_stream,
         )
     return (labels, best) if want_labels else scores
 
@@ -509,3 +533,121 @@ def detect_batch_fused(
     first maximum wins, all-miss documents label 0."""
     inp = prepare_fused_inputs(batch, lengths, lut, window_limit, spec, layout)
     return fused_detect(inp, wq, scales, layout, want_labels=True)
+
+
+# ------------------------------------------------- segment mode ------------
+#
+# Per-cell scores: the same chain with one sum per ``cell``-wide span of
+# window START positions instead of one per document. A window starting at
+# byte s lands in cell s // cell whatever its gram length.
+
+
+def _check_cell(cell: int) -> None:
+    if cell < 128 or cell % 128:
+        raise ValueError(
+            f"fused segment cell width must be a positive multiple of 128 "
+            f"(lane tiling), got {cell}"
+        )
+
+
+def fused_segment_plain(
+    inp: FusedInputs,
+    wq: torch.Tensor,
+    scales: torch.Tensor,
+    layout: FusedLayout,
+    cell: int,
+) -> torch.Tensor:
+    """Plain PyTorch version of the fused segment kernel on the same inputs:
+    f32 [B, ceil(S / cell), L], entry ``[b, c]`` the scaled sum of the table
+    rows of every counted window (:func:`window_rows`) whose start lies in
+    ``[c·cell, (c+1)·cell)``. A short document's partial window is window 0,
+    so it lands in cell 0. A cell that starts at or past ``len`` or ``lim``
+    is all zeros. f32 tables sum in f32; int8/int16 tables sum exactly in
+    int64 and are scaled once per (document, cell, language)."""
+    B, S = inp.batch.shape
+    L = wq.shape[1]
+    C = -(-S // cell)
+    integer = wq.dtype != torch.float32
+    acc = torch.zeros(
+        (B, C, L), dtype=torch.int64 if integer else torch.float32, device=wq.device
+    )
+    block = min(cell, _plain_block(B, L))
+    for r, m in window_rows(inp, layout):
+        for c in range(-(-r.shape[1] // cell)):
+            for s in range(c * cell, min((c + 1) * cell, r.shape[1]), block):
+                e = min(s + block, (c + 1) * cell)
+                g = wq[r[:, s:e]] * m[:, s:e, None].to(wq.dtype)
+                acc[:, c].add_(g.sum(dim=1, dtype=acc.dtype))
+    starts = torch.arange(C, device=wq.device)[None, :] * cell
+    live = (starts < inp.lengths.long()[:, None]) & (starts < inp.lim.long()[:, None])
+    out = acc.to(torch.float32) * scales.to(torch.float32)
+    return torch.where(live[..., None], out, torch.zeros_like(out))
+
+
+def fused_segment_kernel(
+    inp: FusedInputs,
+    wq: torch.Tensor,
+    scales: torch.Tensor,
+    layout: FusedLayout,
+    cell: int,
+) -> torch.Tensor:
+    """Launch ``csrc/fused_segment.cu`` on the batch's CUDA stream (no
+    synchronisation). Same inputs and output as :func:`fused_segment_plain`;
+    the kernel writes every element of the output, zeros included."""
+    _check_cell(cell)
+    batch, lengths, lim, prow, rows = inp
+    B, S = batch.shape
+    tail = _check_fused_operands("fused segment kernel", inp, wq, scales, layout, cell)
+    dev = batch.device
+    C = -(-S // cell)
+    out = torch.empty((B, C, layout.n_langs), dtype=torch.float32, device=dev)
+    if B == 0 or C == 0:
+        return out
+    with torch.cuda.device(dev):
+        FUSED_SEGMENT.launch(
+            _ptr(batch), _ptr(lengths), _ptr(lim), _ptr(prow), _ptr(rows),
+            _ptr(wq), _ptr(scales), _ptr(out),
+            B, S, cell, C, *tail, torch.cuda.current_stream(dev).cuda_stream,
+        )
+    return out
+
+
+def fused_segment(
+    inp: FusedInputs,
+    wq: torch.Tensor,
+    scales: torch.Tensor,
+    layout: FusedLayout,
+    cell: int,
+) -> torch.Tensor:
+    """The wrapper: the plain version for tensors on the CPU, the CUDA
+    kernel for tensors on the card (it raises rather than fall back)."""
+    if inp.batch.device.type == "cpu":
+        return fused_segment_plain(inp, wq, scales, layout, cell)
+    return fused_segment_kernel(inp, wq, scales, layout, cell)
+
+
+def segment_batch_fused(
+    batch: torch.Tensor,
+    lengths: torch.Tensor,
+    wq: torch.Tensor,
+    scales: torch.Tensor,
+    lut: torch.Tensor | None = None,
+    window_limit: torch.Tensor | None = None,
+    *,
+    spec: VocabSpec,
+    layout: FusedLayout,
+    cell: int,
+) -> torch.Tensor:
+    """float32 [B, ceil(S / cell), L] per-cell scores via the fused segment
+    kernel.
+
+    The segment-mode twin of :func:`score_batch_fused`: same window ids,
+    masking, partial-window splice, ``window_limit`` chunk ownership and
+    quantized scales, but a window's contribution lands in the cell of its
+    start position, so the host span decoder can see where each language
+    lives. Summing a row's cells restores the whole-doc score up to f32
+    reduction order.
+    """
+    _check_cell(cell)
+    inp = prepare_fused_inputs(batch, lengths, lut, window_limit, spec, layout)
+    return fused_segment(inp, wq, scales, layout, cell)

@@ -4,7 +4,10 @@
   model through the fused path and an exact n = 1..5 model through the
   hybrid path) and then finds neither ``jax`` nor
   ``spark_languagedetector_tpu`` in ``sys.modules``.
-* An AST scan finds no import of either anywhere in the port.
+* A second subprocess, in which ``jax`` and the JAX package cannot be
+  imported at all, calibrates a model and transforms in segment mode.
+* An AST scan finds no import of either anywhere in the port, ``segment/``
+  included, nor in ``chip_smoke.py``.
 * With no device given and no CUDA card, the entry points raise.
 """
 
@@ -61,9 +64,44 @@ def test_fit_and_transform_leave_jax_unimported():
     assert res.stdout.strip().endswith("isolated")
 
 
+def test_segment_mode_runs_with_jax_unimportable():
+    script = textwrap.dedent(
+        """
+        import json, sys
+        for name in ("jax", "jaxlib", "spark_languagedetector_tpu"):
+            sys.modules[name] = None  # any import of it raises ImportError
+        from spark_languagedetector_tpu_torch import LanguageDetector, Table
+        table = Table({"lang": ["en", "de"] * 3,
+                       "fulltext": ["the cat sat", "der hund lief", "a dog barks",
+                                    "die katze schläft", "the end is near",
+                                    "das ende ist nah"]})
+        model = LanguageDetector(["en", "de"], [1, 2, 3], 50, device="cpu").fit(table)
+        model.calibrate(table)
+        seg = model.copy({"resultMode": "segment"})
+        doc = "the dog barks " * 40 + "der hund und die katze " * 30
+        out = seg.transform(Table({"fulltext": [doc, ""]})).column("lang").tolist()
+        first = json.loads(out[0])
+        assert first["calibrated"] and [s["lang"] for s in first["spans"]] == ["en", "de"], first
+        assert first["spans"][0]["start"] == 0 and first["spans"][-1]["end"] == len(doc)
+        assert json.loads(out[1])["spans"] == []
+        assert seg.detect("der hund")["label"] == "de"
+        try:
+            import jax
+        except ImportError:
+            print("isolated")
+        """
+    )
+    res = subprocess.run(
+        [sys.executable, "-c", script],
+        cwd=PORT_DIR.parent, capture_output=True, text=True, timeout=120,
+    )
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("isolated")
+
+
 def test_no_module_of_the_port_imports_jax():
     offenders = []
-    for path in sorted(PORT_DIR.rglob("*.py")):
+    for path in sorted(PORT_DIR.rglob("*.py")) + [PORT_DIR.parent / "chip_smoke.py"]:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
             if isinstance(node, ast.Import):
                 names = [a.name for a in node.names]
@@ -72,7 +110,7 @@ def test_no_module_of_the_port_imports_jax():
             else:
                 continue
             offenders += [
-                f"{path.relative_to(PORT_DIR)}:{node.lineno} {n}"
+                f"{path.relative_to(PORT_DIR.parent)}:{node.lineno} {n}"
                 for n in names
                 if n.split(".")[0] in FORBIDDEN
             ]
@@ -80,6 +118,9 @@ def test_no_module_of_the_port_imports_jax():
     scanned = {p.name for p in PORT_DIR.rglob("*.py")}
     assert len(scanned) >= 15
     assert {"cuckoo.py", "bucket.py", "score_hist.py", "score_pallas.py"} <= scanned
+    assert {"api.py", "spans.py", "topk.py", "calibrate.py"} <= {
+        p.name for p in (PORT_DIR / "segment").glob("*.py")
+    }
 
 
 def test_entry_points_without_device_raise_when_no_cuda(monkeypatch):

@@ -10,6 +10,7 @@ label like the f32 ones.
 """
 
 import functools
+import json
 
 import numpy as np
 import pytest
@@ -147,8 +148,9 @@ def test_estimator_keeps_reference_validation_messages():
             Table({"lang": ["aa", "bb"], "fulltext": ["x", "y"]})
         )
     model = det.fit(Table({"lang": ["aa", "bb"], "fulltext": ["xy", "yz"]}))
-    with pytest.raises(NotImplementedError, match="later slice"):
-        model.copy({"resultMode": "segment"}).transform(Table({"fulltext": ["x"]}))
+    # Segment mode is in the port now: the output column carries JSON.
+    seg = model.copy({"resultMode": "segment"}).transform(Table({"fulltext": ["x"]}))
+    assert json.loads(seg.column("lang")[0])["spans"][0]["end"] == 1
     with pytest.raises(TypeError, match="Input type must be string"):
         model.transform(Table({"fulltext": np.asarray([1, 2])}))
 
