@@ -12,13 +12,17 @@ Phases, one line or more each; any failure exits non-zero before the verdict:
 2. build    — every kernel of the path compiled with nvcc from ``csrc/``;
 3. kernels  — each kernel held against its plain PyTorch version on the card:
    fused detect over five table layouts x {f32, int16, int8} x {score,
-   detect}, edge documents, window limits and a wide-L case; the row
-   histogram on both sides of its shared-memory threshold; the bigram
-   histogram (mask_n 1 and 2) and bigram score (L = 3 and 16) over edge
-   documents with and without window limits; fused segment over the same
-   five layouts x {f32, int16, int8} x cell {128, 256, 512} on a batch
-   whose width is no cell multiple, with unaligned window limits, skipped
-   cells exactly zero;
+   detect}, with and without window limits, a wide-L case, on three
+   batches: edge documents, documents that repeat one gram to the width
+   (the largest count per row) and random bytes whose distinct rows exceed
+   the kernel's row-count table several times over (flushes); f32 scores
+   of two launches bit-identical; int8/int16 at the int32 guard's edge;
+   the row histogram on both sides of its shared-memory threshold; the
+   bigram histogram (mask_n 1 and 2) and bigram score (L = 3 and 16) over
+   edge documents with and without window limits; fused segment over the
+   same five layouts x {f32, int16, int8} x cell {128, 256, 512} (2048 on
+   the random bytes) on the same three kinds of batch, widths no cell
+   multiple, with unaligned window limits, skipped cells exactly zero;
 4. main     — ``LanguageDetector.fit`` → ``LanguageDetectorModel.transform``
    at the 176-language hashed config (gram lengths 1..5, 2^20 buckets,
    profile size 400; the JAX package's ``bench.py`` config 5) on the same
@@ -386,12 +390,87 @@ def _edge_batch(rng, n_random: int, pad: int):
     return docs, lim
 
 
+def _repeat_batch(rng, pad: int):
+    """Documents that each repeat one gram up to the padded width, the
+    largest count a row can reach: one byte, a byte pair, 0xFF and a
+    three-byte gram, plus a short one; window limits on every other row."""
+    docs = [b"a" * pad, b"ab" * (pad // 2), b"\xff" * pad, b"xyz" * (pad // 3),
+            b"e" * (pad // 3)]
+    lim = np.where(np.arange(len(docs)) % 2 == 0,
+                   rng.integers(1, pad, len(docs)), pad).astype(np.int32)
+    return docs, lim
+
+
+def _distinct_batch(rng, pad: int):
+    """Random-byte documents whose distinct rows exceed a block's row-count
+    table several times over, so the kernels flush; window limits on every
+    other row."""
+    docs = [bytes(rng.integers(0, 256, pad - i).tolist()) for i in range(4)]
+    lim = np.where(np.arange(len(docs)) % 2 == 0,
+                   rng.integers(pad // 2, pad, len(docs)), pad).astype(np.int32)
+    return docs, lim
+
+
+def distinct_rows(torch, SF, inp, lay, cell: int | None = None) -> tuple[int, int]:
+    """(distinct (document, row) pairs -- or (document, cell, row) triples
+    with ``cell`` -- of the batch's counted windows, the most of them in
+    one document or cell): what the fused kernels count before they touch
+    the table."""
+    keys = []
+    for r, m in SF.window_rows(inp, lay):
+        blk = torch.arange(inp.batch.shape[0], device=r.device)[:, None].expand_as(r)
+        if cell is not None:
+            pos = torch.arange(r.shape[1], device=r.device)[None, :]
+            blk = blk * (-(-inp.batch.shape[1] // cell)) + pos // cell
+        keys.append((blk * lay.rows + r)[m])
+    uniq = torch.unique(torch.cat(keys))
+    if not uniq.numel():
+        return 0, 0
+    return int(uniq.numel()), int(torch.bincount(uniq // lay.rows).max())
+
+
+def _guard_case(VocabSpec, SF, route: str, quant: str, L: int = 6):
+    """The int32 guard's edge: one document of 'a' repeated so that 5
+    lengths x its windows x qmax sits just under 2^31, on a table whose rows
+    of 'a' x n are +-qmax (even / odd languages), inline-only ("dense") or
+    with lengths 3..5 through the LUT rows plane ("lut"). Returns (spec,
+    FusedTables, S) with S the longest document the guard admits."""
+    from spark_languagedetector_tpu_torch.models.profile import QUANT_DTYPES
+    from spark_languagedetector_tpu_torch.ops.vocab import window_ids_numpy
+
+    spec = VocabSpec("hashed", (1, 2, 3, 4, 5), 17)
+    rng = np.random.default_rng(29)
+    probe = np.frombuffer(b"aaaaa", np.uint8)[None, :]
+    hot = [int(window_ids_numpy(probe, n, spec)[0, 0]) for n in range(1, 6)]
+    sign = np.where(np.arange(L) % 2 == 0, 1.0, -1.0).astype(np.float32)
+    if route == "dense":
+        w = (0.1 * rng.normal(size=(spec.id_space_size, L))).astype(np.float32)
+        w[hot] = sign
+        lut = None
+    else:
+        n_rows = 300
+        lut = np.full(spec.id_space_size, n_rows, np.int32)
+        picks = rng.choice(spec.id_space_size, n_rows, replace=False)
+        picks = np.concatenate([hot, picks[~np.isin(picks, hot)]])[:n_rows]
+        lut[picks] = np.arange(n_rows)
+        w = np.zeros((n_rows + 1, L), np.float32)
+        w[:n_rows] = 0.1 * rng.normal(size=(n_rows, L))
+        w[:len(hot)] = sign
+    ft = SF.build_fused_tables(w, lut, spec, quant)
+    qmax = QUANT_DTYPES[quant][1]
+    return spec, ft, (2**31 - 1) // (len(spec.gram_lengths) * qmax)
+
+
 def compare_kernel(torch, SF, inp, wq, scales, layout, what: str) -> tuple[float, int]:
     """Kernel vs plain version on the same device inputs, both variants.
     Returns (max abs score error, near-tie label flips)."""
     got = SF.fused_kernel(inp, wq, scales, layout, want_labels=False)
     labels, best = SF.fused_kernel(inp, wq, scales, layout, want_labels=True)
+    again = SF.fused_kernel(inp, wq, scales, layout, want_labels=False)
     torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        fail(f"{what}: two launches on the same batch differ "
+             f"(max abs {float((got - again).abs().max()):.3g})")
     ref = SF.fused_plain(inp, wq, scales, layout, want_labels=False)
     rl, rb = SF.fused_plain(inp, wq, scales, layout, want_labels=True)
     got, ref = got.cpu().numpy(), ref.cpu().numpy()
@@ -408,6 +487,54 @@ def compare_kernel(torch, SF, inp, wq, scales, layout, what: str) -> tuple[float
     return err, flips
 
 
+def _guard_checks(torch, dev, SF, VocabSpec, pad_batch, segment: bool) -> None:
+    """The int32 guard's edge on the card, for int8 and int16 tables and
+    both input routes: one document of 'a' as long as the guard admits
+    (fused detect: windows per sum = S) or one cell that wide (fused
+    segment), against the plain version bit for bit; one byte more
+    must be refused by the wrapper."""
+    for quant in ("int8", "int16"):
+        for route in ("dense", "lut"):
+            spec, ft, n_max = _guard_case(VocabSpec, SF, route, quant)
+            if segment:
+                n_max -= n_max % 128
+            wq = torch.from_numpy(ft.wq).to(dev)
+            scales = torch.from_numpy(ft.scales).to(dev)
+            lut_d = None if ft.lut is None else torch.from_numpy(ft.lut).to(dev)
+            batch, lengths = pad_batch([b"a" * n_max], n_max)
+            inp = SF.prepare_fused_inputs(torch.from_numpy(batch).to(dev),
+                                          torch.from_numpy(lengths).to(dev), lut_d, None,
+                                          spec, ft.layout)
+            what = f"guard {route} {quant} S={n_max}"
+            if not segment:
+                compare_kernel(torch, SF, inp, wq, scales, ft.layout, what)
+                ref = SF.fused_plain(inp, wq, scales, ft.layout, want_labels=False)
+                over = lambda: SF.fused_kernel(  # noqa: E731
+                    SF.prepare_fused_inputs(torch.cat([inp.batch, inp.batch[:, :1]], 1),
+                                            inp.lengths, lut_d, None, spec, ft.layout),
+                    wq, scales, ft.layout, want_labels=False)
+            else:
+                got = SF.fused_segment_kernel(inp, wq, scales, ft.layout, n_max)
+                torch.cuda.synchronize()
+                ref = SF.fused_segment_plain(inp, wq, scales, ft.layout, n_max)
+                if not torch.equal(got, ref):
+                    fail(f"fused_segment {what}: integer sums differ from the plain version "
+                         f"(max abs err {float((got - ref).abs().max()):.3g})")
+                over = lambda: SF.fused_segment_kernel(  # noqa: E731
+                    inp, wq, scales, ft.layout, n_max + 128)
+            total = float((ref.abs() / scales).max())
+            try:
+                over()
+            except ValueError:
+                pass
+            else:
+                fail(f"{what}: the wrapper admitted a sum past its int32 guard")
+            say("kernels", f"{'fused_segment' if segment else 'fused_detect'} {what}: "
+                f"bit-identical to the plain version, |sum| up to {total:.0f} "
+                f"(2^31 = {2**31}); one more {'cell step' if segment else 'byte'} "
+                f"is refused")
+
+
 def phase_kernels(torch, dev) -> float:
     from spark_languagedetector_tpu_torch.ops import score_fused as SF
     from spark_languagedetector_tpu_torch.ops.encoding import pad_batch
@@ -415,29 +542,43 @@ def phase_kernels(torch, dev) -> float:
 
     max_err = 0.0
     rng = np.random.default_rng(7)
-    pad = 256
     for L in (6, 1100):  # one column per thread, and two
         for name, spec, w, lut in _layout_cases(VocabSpec, L, seed=L):
             if L > 6 and name != "dense_exact_bigram":
                 continue
-            docs, lim = _edge_batch(rng, 11, pad)
-            batch, lengths = pad_batch(docs, pad)
-            for quant in (None, "int16", "int8"):
-                ft = SF.build_fused_tables(w, lut, spec, quant)
-                wq = torch.from_numpy(ft.wq).to(dev)
-                scales = torch.from_numpy(ft.scales).to(dev)
-                lut_d = None if ft.lut is None else torch.from_numpy(ft.lut).to(dev)
-                for limit in (None, lim):
-                    inp = SF.prepare_fused_inputs(
-                        torch.from_numpy(batch).to(dev),
-                        torch.from_numpy(lengths).to(dev), lut_d,
-                        None if limit is None else torch.from_numpy(limit).to(dev),
-                        spec, ft.layout,
-                    )
-                    what = f"{name} L={L} {quant or 'f32'} limit={'yes' if limit is not None else 'no'}"
-                    err, flips = compare_kernel(torch, SF, inp, wq, scales, ft.layout, what)
-                    max_err = max(max_err, err)
-                    say("kernels", f"{what}: max abs err {err:.3g}, near-tie label flips {flips}")
+            # Edge documents; one gram repeated to the width (the largest
+            # count per row); random bytes whose distinct rows exceed the
+            # kernel's row-count table several times over (flushes).
+            for label, (docs, lim), pad in (("edges", _edge_batch(rng, 11, 256), 256),
+                                            ("repeat", _repeat_batch(rng, 2048), 2048),
+                                            ("distinct", _distinct_batch(rng, 8192), 8192)):
+                batch, lengths = pad_batch(docs, pad)
+                case_err, flips, pairs = 0.0, 0, None
+                for quant in (None, "int16", "int8"):
+                    ft = SF.build_fused_tables(w, lut, spec, quant)
+                    wq = torch.from_numpy(ft.wq).to(dev)
+                    scales = torch.from_numpy(ft.scales).to(dev)
+                    lut_d = None if ft.lut is None else torch.from_numpy(ft.lut).to(dev)
+                    for limit in (None, lim):
+                        inp = SF.prepare_fused_inputs(
+                            torch.from_numpy(batch).to(dev),
+                            torch.from_numpy(lengths).to(dev), lut_d,
+                            None if limit is None else torch.from_numpy(limit).to(dev),
+                            spec, ft.layout,
+                        )
+                        what = (f"{name} L={L} {label} {quant or 'f32'} "
+                                f"limit={'yes' if limit is not None else 'no'}")
+                        err, f = compare_kernel(torch, SF, inp, wq, scales, ft.layout, what)
+                        case_err, flips = max(case_err, err), flips + f
+                        if pairs is None:
+                            pairs = distinct_rows(torch, SF, inp, ft.layout)
+                max_err = max(max_err, case_err)
+                say("kernels", f"{name} L={L} {label} B={len(docs)} S={pad} f32/int16/int8 "
+                    f"with and without limits: max abs err {case_err:.3g}, integer tables "
+                    f"bit-identical, f32 launches repeat bit for bit, near-tie label flips "
+                    f"{flips}; {pairs[0]} distinct (doc, row) pairs, up to {pairs[1]} in a "
+                    f"document (the kernel holds {SF.FUSED_MAX_ROWS} before a flush)")
+    _guard_checks(torch, dev, SF, VocabSpec, pad_batch, segment=False)
     # All-miss documents: zero scores, label 0.
     spec = VocabSpec("exact", (2,))
     ft = SF.build_fused_tables(np.zeros((spec.id_space_size, 6), np.float32), None, spec, "int8")
@@ -457,58 +598,76 @@ def phase_kernels_segment(torch, dev) -> float:
     five layouts x {f32, int16, int8} x cell {128, 256, 512}, with and
     without unaligned window limits, on edge documents (empty, shorter than
     n, mostly-miss random bytes) in a batch whose width is no multiple of
-    any cell; f32 within ATOL/RTOL, integer tables bit for bit, skipped
-    cells exactly zero. Returns the max abs error."""
+    any cell, on documents that repeat one gram, and on random bytes whose
+    cells (2048 wide too) hold more distinct rows than the kernel's
+    row-count table; f32 within ATOL/RTOL and bit-identical across two
+    launches, integer tables bit for bit, skipped cells exactly zero; then
+    the int32 guard's edge. Returns the max abs error."""
     from spark_languagedetector_tpu_torch.ops import score_fused as SF
     from spark_languagedetector_tpu_torch.ops.encoding import pad_batch
     from spark_languagedetector_tpu_torch.ops.vocab import VocabSpec
 
     max_err = 0.0
     rng = np.random.default_rng(13)
-    pad = 1300  # 10.2 cells of 128, 5.1 of 256, 2.5 of 512
     for L in (6, 1100):
         for name, spec, w, lut in _layout_cases(VocabSpec, L, seed=L):
             if L > 6 and name != "lut_exact12_n1_5":
                 continue
-            docs, _ = _edge_batch(rng, 7, pad)
-            docs.append(b"\xff" * pad)  # fills the width: last cell is ragged
+            docs, _ = _edge_batch(rng, 7, 1300)  # 10.2 cells of 128, 5.1 of 256, 2.5 of 512
+            docs.append(b"\xff" * 1300)  # fills the width: last cell is ragged
             lim = np.where(np.arange(len(docs)) % 2 == 0,
-                           rng.integers(1, pad, len(docs)), pad).astype(np.int32)
-            batch, lengths = pad_batch(docs, pad)
-            bd = torch.from_numpy(batch).to(dev)
-            ld = torch.from_numpy(lengths).to(dev)
-            for quant in (None, "int16", "int8"):
-                ft = SF.build_fused_tables(w, lut, spec, quant)
-                wq = torch.from_numpy(ft.wq).to(dev)
-                scales = torch.from_numpy(ft.scales).to(dev)
-                lut_d = None if ft.lut is None else torch.from_numpy(ft.lut).to(dev)
-                case_err = 0.0
-                for limit in (None, lim):
-                    lim_d = None if limit is None else torch.from_numpy(limit).to(dev)
-                    inp = SF.prepare_fused_inputs(bd, ld, lut_d, lim_d, spec, ft.layout)
-                    for cell in (128, 256, 512):
-                        what = (f"fused_segment {name} L={L} {quant or 'f32'} cell={cell} "
-                                f"limit={'yes' if limit is not None else 'no'}")
-                        got = SF.fused_segment_kernel(inp, wq, scales, ft.layout, cell)
-                        torch.cuda.synchronize()
-                        ref = SF.fused_segment_plain(inp, wq, scales, ft.layout, cell)
-                        err = float((got - ref).abs().max())
-                        if not torch.allclose(got, ref, atol=ATOL, rtol=RTOL):
-                            fail(f"{what}: differs from the plain version (max abs err {err:.3g})")
-                        if quant is not None and not torch.equal(got, ref):
-                            fail(f"{what}: integer sums must be bit-identical, "
-                                 f"max abs err {err:.3g}")
-                        starts = torch.arange(got.shape[1], device=dev)[None, :] * cell
-                        dead = (starts >= inp.lengths[:, None]) | (starts >= inp.lim[:, None])
-                        if bool((got[dead] != 0).any()):
-                            fail(f"{what}: a cell at or past min(len, lim) is not zero")
-                        whole = SF.fused_kernel(inp, wq, scales, ft.layout, want_labels=False)
-                        if not torch.allclose(got.sum(dim=1), whole, atol=1e-2, rtol=1e-4):
-                            fail(f"{what}: cells do not sum to the whole-document scores")
-                        case_err = max(case_err, err)
+                           rng.integers(1, 1300, len(docs)), 1300).astype(np.int32)
+            batches = (("edges", (docs, lim), 1300, (128, 256, 512)),
+                       ("repeat", _repeat_batch(rng, 1300), 1300, (128, 256, 512)),
+                       ("distinct", _distinct_batch(rng, 4100), 4100, (128, 512, 2048)))
+            for label, (docs, lim), pad, cells in batches:
+                batch, lengths = pad_batch(docs, pad)
+                bd = torch.from_numpy(batch).to(dev)
+                ld = torch.from_numpy(lengths).to(dev)
+                case_err, triples = 0.0, None
+                for quant in (None, "int16", "int8"):
+                    ft = SF.build_fused_tables(w, lut, spec, quant)
+                    wq = torch.from_numpy(ft.wq).to(dev)
+                    scales = torch.from_numpy(ft.scales).to(dev)
+                    lut_d = None if ft.lut is None else torch.from_numpy(ft.lut).to(dev)
+                    for limit in (None, lim):
+                        lim_d = None if limit is None else torch.from_numpy(limit).to(dev)
+                        inp = SF.prepare_fused_inputs(bd, ld, lut_d, lim_d, spec, ft.layout)
+                        for cell in cells:
+                            what = (f"fused_segment {name} L={L} {label} {quant or 'f32'} "
+                                    f"cell={cell} limit={'yes' if limit is not None else 'no'}")
+                            got = SF.fused_segment_kernel(inp, wq, scales, ft.layout, cell)
+                            again = SF.fused_segment_kernel(inp, wq, scales, ft.layout, cell)
+                            torch.cuda.synchronize()
+                            if not torch.equal(got, again):
+                                fail(f"{what}: two launches on the same batch differ")
+                            ref = SF.fused_segment_plain(inp, wq, scales, ft.layout, cell)
+                            err = float((got - ref).abs().max())
+                            if not torch.allclose(got, ref, atol=ATOL, rtol=RTOL):
+                                fail(f"{what}: differs from the plain version "
+                                     f"(max abs err {err:.3g})")
+                            if quant is not None and not torch.equal(got, ref):
+                                fail(f"{what}: integer sums must be bit-identical, "
+                                     f"max abs err {err:.3g}")
+                            starts = torch.arange(got.shape[1], device=dev)[None, :] * cell
+                            dead = (starts >= inp.lengths[:, None]) | (starts >= inp.lim[:, None])
+                            if bool((got[dead] != 0).any()):
+                                fail(f"{what}: a cell at or past min(len, lim) is not zero")
+                            whole = SF.fused_kernel(inp, wq, scales, ft.layout,
+                                                    want_labels=False)
+                            if not torch.allclose(got.sum(dim=1), whole, atol=1e-2, rtol=1e-4):
+                                fail(f"{what}: cells do not sum to the whole-document scores")
+                            case_err = max(case_err, err)
+                            if triples is None and cell == cells[-1]:
+                                triples = distinct_rows(torch, SF, inp, ft.layout, cell)
                 max_err = max(max_err, case_err)
-                say("kernels", f"fused_segment {name} L={L} {quant or 'f32'} cells 128/256/512 "
-                    f"with and without limits: max abs err {case_err:.3g}")
+                say("kernels", f"fused_segment {name} L={L} {label} B={len(docs)} S={pad} "
+                    f"f32/int16/int8 cells {'/'.join(map(str, cells))} with and without "
+                    f"limits: max abs err {case_err:.3g}, integer tables bit-identical, f32 "
+                    f"launches repeat bit for bit; at cell {cells[-1]} {triples[0]} distinct "
+                    f"(doc, cell, row) triples, up to {triples[1]} in a cell (the kernel "
+                    f"holds {SF.FUSED_MAX_ROWS} before a flush)")
+    _guard_checks(torch, dev, SF, VocabSpec, pad_batch, segment=True)
     return max_err
 
 
@@ -811,8 +970,7 @@ def phase_times(torch, dev, model, runner, quant_runners, eval_docs):
     # so it needs one multiply-add (2 operations) per distinct (document,
     # row) pair and language, however often the gram repeats.
     valid = int(mask.sum())
-    doc = torch.arange(B, device=rows.device)[:, None].expand_as(rows)
-    pairs = int(torch.unique((doc * lay.rows + rows)[mask]).numel())
+    pairs = distinct_rows(torch, SF, inp, lay)[0]
     itemsize = runner.table.element_size()
     total_bytes = in_bytes + touched * L * itemsize + L * 4 + B * 8
     bytes_ms = total_bytes / HBM_BYTES_PER_S * 1e3
@@ -1290,10 +1448,13 @@ def phase_segment(torch, dev, model, main_ids, main_docs):
     return launches["fused_segment"], err_plain
 
 
-def phase_times_segment(torch, dev, runner, inp, launches: int, errs: float) -> dict:
+def phase_times_segment(torch, dev, runner, quant_runners, inp, launches: int,
+                        errs: float) -> dict:
     """The fused-segment kernel at the runner's largest config-5 batch (the
-    batch phase 5 timed the fused-detect kernel on), cell 256: kernel, plain
-    version, bound and ``embedding_bag`` with one bag per (document, cell)."""
+    batch phase 5 timed the fused-detect kernel on), cell 256: kernel (f32,
+    and the int16 and int8 tables, each held bit for bit against its plain
+    version), plain version, bound and ``embedding_bag`` with one bag per
+    (document, cell)."""
     from spark_languagedetector_tpu_torch.api.runner import SEGMENT_CELL as cell
     from spark_languagedetector_tpu_torch.ops import score_fused as SF
 
@@ -1311,6 +1472,18 @@ def phase_times_segment(torch, dev, runner, inp, launches: int, errs: float) -> 
         f"plain max abs err {err:.3g}")
     ms = cuda_ms(torch, lambda: SF.fused_segment_kernel(
         inp, runner.table, runner.scales, lay, cell), reps=20)
+    q_ms = {}
+    for q, r in quant_runners.items():
+        qinp = SF.prepare_fused_inputs(inp.batch, inp.lengths, r.table_lut, None, r.spec,
+                                       r.layout)
+        if not torch.equal(SF.fused_segment_kernel(qinp, r.table, r.scales, r.layout, cell),
+                           SF.fused_segment_plain(qinp, r.table, r.scales, r.layout, cell)):
+            fail(f"config-5 batch: fused_segment {q} differs from the plain version")
+        q_ms[q] = cuda_ms(torch, lambda qinp=qinp, r=r: SF.fused_segment_kernel(
+            qinp, r.table, r.scales, r.layout, cell), reps=20)
+    say("times", f"fused_segment f32 {ms:.4f} ms, "
+        + ", ".join(f"{q} {t:.4f} ms (bit-identical to its plain version)"
+                    for q, t in q_ms.items()))
     plain_ms = cuda_ms(torch, lambda: SF.fused_segment_plain(
         inp, runner.table, runner.scales, lay, cell), reps=3, warmup=1)
 
@@ -1338,8 +1511,7 @@ def phase_times_segment(torch, dev, runner, inp, launches: int, errs: float) -> 
     # once) over the memory rate, against one multiply-add per distinct
     # (document, cell, row) and language over the f32 rate.
     _, _, in_bytes, touched = fused_compulsory_inputs(torch, SF, inp, lay)
-    bagid = torch.arange(B * C, device=dev)[:, None].expand_as(bag)
-    triples = int(torch.unique((bagid * lay.rows + bag)[mask]).numel())
+    triples = distinct_rows(torch, SF, inp, lay, cell)[0]
     owned = int(live.sum())
     total_bytes = (in_bytes + touched * L * runner.table.element_size() + L * 4
                    + owned * L * 4)
@@ -1429,8 +1601,8 @@ def main() -> None:
     hist_entries = phase_times_hist(torch, dev, model3, runner3, runner10, eval3,
                                     launches3, launches10, hist_errs)
     seg_launches, seg_path_err = phase_segment(torch, dev, model, main_ids, main_docs)
-    segment_entry = phase_times_segment(torch, dev, runner, c5_inp, seg_launches,
-                                        max(segment_err, seg_path_err))
+    segment_entry = phase_times_segment(torch, dev, runner, quant_runners, c5_inp,
+                                        seg_launches, max(segment_err, seg_path_err))
     phase_segment3(torch, dev, model3)
     bad = [k for k in ("jax", "jaxlib", "spark_languagedetector_tpu") if k in sys.modules]
     if bad:

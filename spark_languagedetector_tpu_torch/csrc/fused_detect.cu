@@ -20,26 +20,34 @@
 //   * rows plane: rows resolved through the LUT by the wrapper, -1 where a
 //     window is masked.
 //
-// Design. The TPU kernel builds a one-hot x one-hot histogram on the MXU
-// because Mosaic cannot gather. Hopper gathers, so each block stages a
-// window block's rows in shared memory, then every thread owns one (up to
-// four) language columns and sums wq[row, l] over the staged rows: a warp
-// reads consecutive columns of one row, so the loads are coalesced. f32
-// tables accumulate in f32; int8/int16 tables accumulate in int32 (exact;
-// the wrapper checks that windows x qmax < 2^31) and are scaled once per
-// (document, language).
+// Design. The TPU kernel builds a per-document [rows/256 x 256] histogram
+// from one-hot x one-hot products on the MXU, then contracts it with the
+// table: Sum count x w[row]. This kernel keeps that function shape with
+// Hopper's tools (fused_common.cuh): each block counts its document's
+// windows per distinct row in a shared-memory hash table (warp-aggregated
+// atomics), sorts the distinct rows (f32 tables), and reads each distinct
+// row of the table once per flush, count x row into every language column,
+// eight independent loads in flight per thread, coalesced along the row.
+// f32 tables sum in f32 in the sorted order, so two launches give
+// bit-identical scores; int8/int16 tables sum exactly in int32 (the wrapper
+// checks that windows x qmax < 2^31) and are scaled once per (document,
+// language).
 //
-// What bounds it on the card. Each thread walks every staged row for its
-// column, so the kernel issues one table load and one add per (window,
-// language), a gram repeated in a document included. On an H100 the time
-// is nearly flat across f32, int16 and int8 tables (chip_smoke.py phase 5,
-// PERF.md), so the bytes gathered are not what limits it; which per-load
-// cost does (issue rate, latency) has not been read from a profiler
-// counter. The design does nothing about it yet: it only keeps the loads
-// coalesced and each row id in shared memory. Counting repeated grams per
-// document before touching the table (the histogram form the TPU kernel
-// used), tensor-core contraction and L2 residency of the table are later
-// work.
+// What bounds it on the card. The first design issued one dependent table
+// load and one add per (window, language), a repeated gram included: 4.6 G
+// loads on the config-5 batch, 3.3 ms whatever the table dtype. Now the
+// table loads are distinct (document, row) pairs x L, 224 M there (a
+// document repeats a row about 20 times), and the rest is per window: the
+// row computation (four windows per thread computed before their inserts,
+// so their loads overlap), one __match_any_sync and at most one
+// shared-memory atomic per group of equal rows in a warp, one barrier per
+// round of blockDim windows, and per flush a bitonic sort of up to
+// kMaxFill rows. On an H100 that takes about 0.4 ms, some 8% of the
+// bytes bound (chip_smoke.py, PERF.md); int8 and int16 tables, which
+// gather a quarter and half the bytes and skip the sort, are only 13-15%
+// faster, so the per-window counting and the latency of the gather's
+// loads, not bytes, set the time. Which of the two weighs more is not
+// measured: no profiler counters are read on the card.
 
 #include <cuda_runtime.h>
 
@@ -71,7 +79,7 @@ __global__ void __launch_bounds__(1024) fused_detect_kernel(
     int32_t* __restrict__ labels, float* __restrict__ best, int S, int K,
     int W, int R, int L, InlinePlan plan) {
   using A = typename Accum<T>::type;
-  __shared__ int32_t srow[kStage];
+  __shared__ RowCounts counts;
   __shared__ float red_v[32];
   __shared__ int red_i[32];
 
@@ -84,6 +92,8 @@ __global__ void __launch_bounds__(1024) fused_detect_kernel(
   A acc[kMaxColsPerThread];
 #pragma unroll
   for (int m = 0; m < kMaxColsPerThread; ++m) acc[m] = A(0);
+  clear_counts(counts, tid, nt);
+  int held = 0;  // distinct rows in the table, the same in every thread
 
   // Inline lengths: owned window starts are s <= len - n and s < lim.
   const uint8_t* doc = bytes + static_cast<size_t>(b) * S;
@@ -91,18 +101,12 @@ __global__ void __launch_bounds__(1024) fused_detect_kernel(
     const int n = plan.n[j];
     const bool partial = len < n;
     const int nwin = partial ? (len > 0 ? 1 : 0) : max(0, min(len - n + 1, lm));
-    for (int base = 0; base < nwin; base += kStage) {
-      const int cnt = min(kStage, nwin - base);
-      for (int i = tid; i < cnt; i += nt) {
-        srow[i] = partial
-                      ? prow[static_cast<size_t>(b) * plan.count + j]
-                      : inline_row(doc + base + i, n, plan.kind[j], plan.p1[j],
-                                   plan.p2[j]);
-      }
-      __syncthreads();
-      accumulate(acc, srow, cnt, wq, R, L, tid, nt);
-      __syncthreads();
-    }
+    const int pr = partial ? prow[static_cast<size_t>(b) * plan.count + j] : -1;
+    const int kind = plan.kind[j];
+    const uint32_t p1 = plan.p1[j], p2 = plan.p2[j];
+    count_windows(counts, acc, held, nwin, [=](int w) {
+      return partial ? pr : inline_row(doc + w, n, kind, p1, p2);
+    }, wq, R, L, tid, nt);
   }
 
   // Rows plane: K segments of W rows each. No window at or past len is
@@ -110,15 +114,10 @@ __global__ void __launch_bounds__(1024) fused_detect_kernel(
   // scan stops at len.
   for (int k = 0; k < K; ++k) {
     const int32_t* rp = rows + (static_cast<size_t>(b) * K + k) * W;
-    const int nwin = min(W, len);
-    for (int base = 0; base < nwin; base += kStage) {
-      const int cnt = min(kStage, nwin - base);
-      for (int i = tid; i < cnt; i += nt) srow[i] = rp[base + i];
-      __syncthreads();
-      accumulate(acc, srow, cnt, wq, R, L, tid, nt);
-      __syncthreads();
-    }
+    count_windows(counts, acc, held, min(W, len), [=](int w) { return rp[w]; },
+                  wq, R, L, tid, nt);
   }
+  flush_counts(counts, acc, held, wq, L, tid, nt);
 
   // Epilogue: scale once per (document, language); scores and/or argmax.
   float bv = -INFINITY;

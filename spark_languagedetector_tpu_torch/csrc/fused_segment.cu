@@ -23,22 +23,31 @@
 // S need not be a multiple of cell and W need not reach a cell's end: the
 // last cell's block stops at the document's end, at S, and at W.
 //
-// Design. As in fused_detect.cu, a block stages a window block's rows in
-// shared memory, then every thread owns one (up to four) language columns
-// and sums wq[row, l] over the staged rows, so a warp's loads are coalesced
-// along a table row. f32 tables accumulate in f32; int8/int16 tables
-// accumulate in int32 (exact; the wrapper checks that lengths x cell x qmax
-// < 2^31) and are scaled once per (document, cell, language). The TPU
-// kernel's one-hot histogram on the MXU, its (8, 128) padding, document
-// blocks and streamed table tiles are that machine's way and are not
-// carried over.
+// Design. As in fused_detect.cu, the block runs the count -> order ->
+// gather core of fused_common.cuh, here per (document, cell): it counts the
+// cell's windows per distinct row in shared memory, sorts the distinct
+// rows (f32 tables) and reads each distinct row of the table once per
+// flush, count x row into every language column, the loads coalesced along
+// a table row. f32 tables sum in f32 in the sorted order (two launches
+// give bit-identical cells); int8/int16 tables sum exactly in int32 (the
+// wrapper checks that lengths x cell x qmax < 2^31) and are scaled once
+// per (document, cell, language). A cell of 256 starts holds at most
+// 256 x lengths windows, 1,280 at five lengths; one of more distinct rows
+// than the table holds flushes, so any cell width works. The TPU kernel's
+// one-hot histogram on the MXU, its (8, 128) padding, document blocks and
+// streamed table tiles are that machine's way and are not carried over.
 //
-// What bounds it on the card. The same as the whole-document kernel: one
-// table load and one add per (window, language), a gram repeated in a cell
-// included, so the per-load cost and not the bytes gathered sets its time
-// (chip_smoke.py times it beside its bound; PERF.md). Cells past a
-// document's end cost one block that writes L zeros. Counting repeated
-// grams per cell before touching the table is later work.
+// What bounds it on the card. The first design issued one table load and
+// one add per (window, language), a gram repeated in a cell included.
+// Now the table loads are distinct (document, cell, row) triples x L (a
+// cell repeats a row about 8 times on the config-5 batch), and the rest is
+// per window (row computation, __match_any_sync, a shared-memory atomic
+// per group of equal rows in a warp, a barrier per round) and per block:
+// clearing and compacting the 2,048 slots and sorting the rows, which a
+// cell of about 1,200 windows and 150 distinct rows pays in full. On an
+// H100 that takes about 0.9 ms, some 4% of the bytes bound (chip_smoke.py,
+// PERF.md); integer tables are about a quarter faster. Cells past a
+// document's end cost one block that writes L zeros.
 
 #include <cuda_runtime.h>
 
@@ -59,7 +68,7 @@ __global__ void __launch_bounds__(1024) fused_segment_kernel(
     const float* __restrict__ scales, float* __restrict__ out, int S, int cell,
     int C, int K, int W, int R, int L, InlinePlan plan) {
   using A = typename Accum<T>::type;
-  __shared__ int32_t srow[kStage];
+  __shared__ RowCounts counts;
 
   const int b = blockIdx.x / C;
   const int c = blockIdx.x % C;
@@ -83,28 +92,24 @@ __global__ void __launch_bounds__(1024) fused_segment_kernel(
   A acc[kMaxColsPerThread];
 #pragma unroll
   for (int m = 0; m < kMaxColsPerThread; ++m) acc[m] = A(0);
+  clear_counts(counts, tid, nt);
+  int held = 0;  // distinct rows in the table, the same in every thread
 
   // Inline lengths: the cell's owned window starts are off <= s < end with
   // end = min(off + cell, len - n + 1, lim). A document shorter than n has
   // its one partial window in cell 0.
-  const uint8_t* doc = bytes + static_cast<size_t>(b) * S;
+  const uint8_t* doc = bytes + static_cast<size_t>(b) * S + off;
   for (int j = 0; j < plan.count; ++j) {
     const int n = plan.n[j];
     const bool partial = len < n;
     const int nwin = partial ? (c == 0 ? 1 : 0)
                              : max(0, min(min(off + cell, lm), len - n + 1) - off);
-    for (int base = 0; base < nwin; base += kStage) {
-      const int cnt = min(kStage, nwin - base);
-      for (int i = tid; i < cnt; i += nt) {
-        srow[i] = partial
-                      ? prow[static_cast<size_t>(b) * plan.count + j]
-                      : inline_row(doc + off + base + i, n, plan.kind[j],
-                                   plan.p1[j], plan.p2[j]);
-      }
-      __syncthreads();
-      accumulate(acc, srow, cnt, wq, R, L, tid, nt);
-      __syncthreads();
-    }
+    const int pr = partial ? prow[static_cast<size_t>(b) * plan.count + j] : -1;
+    const int kind = plan.kind[j];
+    const uint32_t p1 = plan.p1[j], p2 = plan.p2[j];
+    count_windows(counts, acc, held, nwin, [=](int w) {
+      return partial ? pr : inline_row(doc + w, n, kind, p1, p2);
+    }, wq, R, L, tid, nt);
   }
 
   // Rows plane: K segments of W rows each; the cell's entries are positions
@@ -112,14 +117,10 @@ __global__ void __launch_bounds__(1024) fused_segment_kernel(
   for (int k = 0; k < K; ++k) {
     const int32_t* rp = rows + (static_cast<size_t>(b) * K + k) * W + off;
     const int nwin = max(0, min(min(off + cell, W), len) - off);
-    for (int base = 0; base < nwin; base += kStage) {
-      const int cnt = min(kStage, nwin - base);
-      for (int i = tid; i < cnt; i += nt) srow[i] = rp[base + i];
-      __syncthreads();
-      accumulate(acc, srow, cnt, wq, R, L, tid, nt);
-      __syncthreads();
-    }
+    count_windows(counts, acc, held, nwin, [=](int w) { return rp[w]; }, wq, R,
+                  L, tid, nt);
   }
+  flush_counts(counts, acc, held, wq, L, tid, nt);
 
   // Epilogue: scale once per (document, cell, language).
 #pragma unroll

@@ -6,7 +6,9 @@ are ``ops/score_fused.py::_build_fused_kernel`` and
 ``::_build_fused_segment_kernel``; here each is hand-written CUDA C++ for
 Hopper (``csrc/fused_detect.cu`` and ``csrc/fused_segment.cu``, whose
 headers say what bounds them on the card and what their design does about
-that; ``csrc/fused_common.cuh`` holds what the two share).
+that; ``csrc/fused_common.cuh`` holds what the two share: each block
+counts its windows per distinct table row in shared memory, then reads
+each distinct row once, the TPU kernel's Σ count × w[row] shape).
 
 The table layout is semantics and is kept: :func:`build_fused_tables` lays a
 profile out so that
@@ -63,6 +65,10 @@ _TORCH_DTYPE = {None: torch.float32, "int16": torch.int16, "int8": torch.int8}
 
 _MAX_INLINE = 8  # csrc/fused_common.cuh kMaxInline
 _MAX_LANGS = 4096  # 1024 threads x 4 columns per thread
+# A kernel block counts its windows per distinct row in a shared-memory hash
+# table and flushes it (a gather of the rows held) before it could hold more
+# than FUSED_MAX_ROWS rows (csrc/fused_common.cuh kMaxFill, half its kSlots).
+FUSED_MAX_ROWS = 1024
 
 
 @dataclass(frozen=True)
@@ -388,8 +394,10 @@ def _check_fused_operands(
     """What both C entry points assume of their operands, checked: CUDA,
     dtype, shape and contiguity of every tensor, the layout's limits, and
     that an int32 sum of ``windows_per_sum`` windows per gram length cannot
-    overflow. Returns the tail of both launches' arguments: ``(K, W, R, L,
-    dtype code, n_inline, the inline plan's four arrays)``."""
+    overflow (the kernels sum count × q over distinct rows, and the counts
+    add up to the windows, so the same bound holds). Returns the tail of
+    both launches' arguments: ``(K, W, R, L, dtype code, n_inline, the
+    inline plan's four arrays)``."""
     batch, lengths, lim, prow, rows = inp
     dev = batch.device
     if dev.type != "cuda":

@@ -9,6 +9,8 @@ Tolerance: scores ``atol=1e-4, rtol=1e-5`` (the reduction-order class of
 docs/ARCHITECTURE.md: the sums run in another order); labels identical.
 """
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -18,6 +20,8 @@ import jax.numpy as jnp
 from spark_languagedetector_tpu.ops import score as jax_score
 from spark_languagedetector_tpu.ops import score_fused as jax_fused
 from spark_languagedetector_tpu.ops.vocab import VocabSpec as JaxVocabSpec
+from spark_languagedetector_tpu_torch.models.profile import QUANT_DTYPES
+from spark_languagedetector_tpu_torch.ops import _kernels
 from spark_languagedetector_tpu_torch.ops import score as torch_score
 from spark_languagedetector_tpu_torch.ops import score_fused as SF
 from spark_languagedetector_tpu_torch.ops.encoding import pad_batch
@@ -68,6 +72,66 @@ LAYOUTS = {
     "lut_exact12_n1_5": ((HASHED, (1, 2, 3, 4, 5), 17), lambda s, r: _lut(s, r, 300)),
     "lut_exact_n1_3": ((EXACT, (1, 2, 3)), lambda s, r: _lut(s, r, 300)),
 }
+
+
+def _repeat_docs(pad):
+    """Eight documents that each repeat one gram up to ``pad`` bytes, the
+    largest count a row can reach (the last a short one)."""
+    return [
+        b"a" * pad, b"ab" * (pad // 2), b"\xff" * pad, b"xyz" * (pad // 3),
+        b"e" * (pad // 3), b"\x00" * pad, "é".encode() * (pad // 2), b"q" * 7,
+    ]
+
+
+def _distinct_docs(rng, pad):
+    """Eight random-byte documents about as wide as the batch: nearly every
+    window of the longer lengths is a row of its own, more distinct rows
+    than a CUDA kernel block's row-count table holds at the card's widths
+    (``SF.FUSED_MAX_ROWS``)."""
+    return [bytes(rng.integers(0, 256, pad - i).tolist()) for i in range(8)]
+
+
+# The fused kernels' edges: counts per row as large as the width allows, and
+# more distinct rows per document than one flush of the row counts.
+EDGE_BATCHES = {
+    "repeat": lambda rng, pad: _repeat_docs(pad),
+    "distinct": _distinct_docs,
+}
+
+
+def learn_windows(spec, w, lut, batch, rng):
+    """Make every window of ``batch`` (every gram length) hit a learned
+    row, so that the edge documents score: a dense table gets random
+    weights in its unlearned rows among the ids, a LUT sends its missing
+    ids to random learned rows."""
+    ids = np.unique(np.concatenate([
+        window_ids_numpy(batch, n, spec).ravel() for n in spec.gram_lengths
+    ]))
+    w = w.copy()
+    if lut is None:
+        cold = ids[~w[ids].any(axis=1)]
+        w[cold] = rng.normal(size=(len(cold), w.shape[1])).astype(np.float32)
+        return w, None
+    lut = lut.copy()
+    miss = w.shape[0] - 1
+    cold = ids[lut[ids] == miss]
+    lut[cold] = rng.integers(0, miss, len(cold))
+    return w, lut
+
+
+def _edge_case(kind, name, seed, pad=PAD):
+    """A layout's table and one edge batch (window limits on half the
+    documents), every window of it learned."""
+    args, build = LAYOUTS[name]
+    rng = np.random.default_rng(seed)
+    spec, jspec = VocabSpec(*args), JaxVocabSpec(*args)
+    w, lut = build(spec, rng)
+    batch, lengths = pad_batch(EDGE_BATCHES[kind](rng, pad), pad)
+    w, lut = learn_windows(spec, w, lut, batch, rng)
+    lim = np.where(
+        np.arange(len(lengths)) % 2 == 0, rng.integers(1, pad, len(lengths)), pad
+    ).astype(np.int32)
+    return spec, jspec, w, lut, batch, lengths, lim
 
 
 def _case(name, seed):
@@ -145,6 +209,35 @@ def test_fused_quantized_matches_jax_fused(name, quant):
     got = _port(ft, batch, lengths, lim, spec, detect=False).numpy()
     ref = np.asarray(_jax(w, lut, jspec, quant, batch, lengths, lim, False))
     np.testing.assert_allclose(got, ref, atol=ATOL, rtol=RTOL)
+    labels, best = _port(ft, batch, lengths, lim, spec, detect=True)
+    np.testing.assert_array_equal(labels.numpy(), np.argmax(ref, axis=1))
+    np.testing.assert_allclose(best.numpy(), ref.max(axis=1), atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("quant", [None, "int16", "int8"])
+@pytest.mark.parametrize(
+    "kind, name",
+    [
+        ("repeat", "lut_exact12_n1_5"),
+        ("repeat", "dense_exact_bigram"),
+        ("distinct", "lut_exact12_n1_5"),
+        ("distinct", "dense_hashed_exact12_fold"),
+    ],
+)
+def test_fused_edge_documents_match_jax_fused(kind, name, quant):
+    """One gram repeated to the width, and random bytes with a row of their
+    own per window: the port's plain version against the JAX fused kernel,
+    f32 within the reduction-order class, integer tables bit for bit,
+    labels identical."""
+    spec, jspec, w, lut, batch, lengths, lim = _edge_case(kind, name, 10)
+    ft = SF.build_fused_tables(w, lut, spec, quant)
+    got = _port(ft, batch, lengths, lim, spec, detect=False).numpy()
+    ref = np.asarray(_jax(w, lut, jspec, quant, batch, lengths, lim, False))
+    assert np.count_nonzero(ref.any(axis=1)) >= 7  # the documents score
+    if quant is None:
+        np.testing.assert_allclose(got, ref, atol=ATOL, rtol=RTOL)
+    else:
+        np.testing.assert_array_equal(got, ref)
     labels, best = _port(ft, batch, lengths, lim, spec, detect=True)
     np.testing.assert_array_equal(labels.numpy(), np.argmax(ref, axis=1))
     np.testing.assert_allclose(best.numpy(), ref.max(axis=1), atol=ATOL, rtol=RTOL)
@@ -247,3 +340,82 @@ def test_fused_wrapper_takes_plain_version_only_on_cpu():
             inp, torch.from_numpy(ft.wq), torch.from_numpy(ft.scales), ft.layout,
             want_labels=False,
         )
+
+
+def test_row_count_table_constant_matches_the_kernel_header():
+    """The wrapper's mirror of the kernels' shared-memory row-count table
+    (``csrc/fused_common.cuh``): 2^kSlotBits slots, flushed at half full."""
+    src = (_kernels.CSRC_DIR / "fused_common.cuh").read_text()
+    bits = int(re.search(r"kSlotBits = (\d+);", src).group(1))
+    assert "kMaxFill = kSlots / 2;" in src
+    assert SF.FUSED_MAX_ROWS == (1 << bits) // 2
+
+
+def guard_table(quant):
+    """A table at the int32 guard's edge: hashed n = 1..5 whose rows of
+    'a' x n are +-1 (even / odd languages), so they quantize to +-qmax, and
+    the longest document of 'a' that the wrapper's windows x qmax < 2^31
+    guard admits. Returns (spec, weights, that length)."""
+    spec = VocabSpec(HASHED, (1, 2, 3, 4, 5), 17)
+    rng = np.random.default_rng(12)
+    w = (0.1 * rng.normal(size=(spec.id_space_size, L))).astype(np.float32)
+    probe = np.frombuffer(b"aaaaa", np.uint8)[None, :]
+    hot = [int(window_ids_numpy(probe, n, spec)[0, 0]) for n in spec.gram_lengths]
+    w[hot] = np.where(np.arange(L) % 2 == 0, 1.0, -1.0)
+    n_max = (2**31 - 1) // (len(spec.gram_lengths) * QUANT_DTYPES[quant][1])
+    return spec, w, n_max
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["edges", "repeat", "distinct", "guard"])
+def test_fused_detect_kernel_matches_plain_on_the_card(kind):
+    """Launches ``csrc/fused_detect.cu`` (built with nvcc on first use) and
+    holds it against the plain version on the card: edge documents, one
+    gram repeated to the width, random bytes 8,192 wide whose distinct rows
+    flush the kernel's row counts several times, and int8/int16 at the
+    int32 guard's edge. f32 within the reduction-order tolerance and
+    bit-identical across two launches, integer tables bit for bit, labels
+    the first max of the scores."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card and nvcc: the kernel has no CPU form")
+    dev = torch.device("cuda", 0)
+    if kind == "guard":
+        cases = []
+        for quant in ("int8", "int16"):
+            spec, w, n_max = guard_table(quant)
+            batch, lengths = pad_batch([b"a" * n_max], n_max)
+            cases.append((spec, w, None, batch, lengths, None, (quant,)))
+    else:
+        cases = []
+        for name in LAYOUTS:
+            if kind == "edges":
+                spec, _, w, lut, _, batch, lengths, lim = _case(name, 11)
+            else:
+                pad = 2048 if kind == "repeat" else 8192
+                spec, _, w, lut, batch, lengths, lim = _edge_case(kind, name, 11, pad)
+            cases.append((spec, w, lut, batch, lengths, lim, (None, "int16", "int8")))
+    for spec, w, lut, batch, lengths, lim, quants in cases:
+        for quant in quants:
+            ft = SF.build_fused_tables(w, lut, spec, quant)
+            wq, scales = torch.from_numpy(ft.wq).to(dev), torch.from_numpy(ft.scales).to(dev)
+            for limit in (None,) if lim is None else (None, lim):
+                inp = SF.prepare_fused_inputs(
+                    torch.from_numpy(batch).to(dev), torch.from_numpy(lengths).to(dev),
+                    None if ft.lut is None else torch.from_numpy(ft.lut).to(dev),
+                    None if limit is None else torch.from_numpy(limit).to(dev),
+                    spec, ft.layout,
+                )
+                launches = _kernels.FUSED_DETECT.launches
+                got = SF.fused_detect(inp, wq, scales, ft.layout, want_labels=False)
+                again = SF.fused_detect(inp, wq, scales, ft.layout, want_labels=False)
+                labels, best = SF.fused_detect(inp, wq, scales, ft.layout, want_labels=True)
+                torch.cuda.synchronize()
+                assert _kernels.FUSED_DETECT.launches == launches + 3
+                ref = SF.fused_plain(inp, wq, scales, ft.layout, want_labels=False)
+                if quant is None:
+                    torch.testing.assert_close(got, ref, atol=ATOL, rtol=RTOL)
+                    assert torch.equal(got, again)
+                else:
+                    assert torch.equal(got, ref)
+                assert torch.equal(labels, torch.argmax(got, dim=1).to(torch.int32))
+                assert torch.equal(best, got.amax(dim=1))

@@ -31,7 +31,7 @@ from spark_languagedetector_tpu_torch.ops import score as torch_score
 from spark_languagedetector_tpu_torch.ops import score_fused as SF
 from spark_languagedetector_tpu_torch.ops.encoding import pad_batch
 from spark_languagedetector_tpu_torch.ops.vocab import EXACT, VocabSpec
-from tests.test_torch_score_fused import JAX_TILE_BYTES, LAYOUTS, L
+from tests.test_torch_score_fused import JAX_TILE_BYTES, LAYOUTS, L, _edge_case
 
 PAD = 300
 CELLS = (128, 256, 512)
@@ -147,6 +147,29 @@ def test_segment_fused_quantized_matches_jax_kernel(name, quant):
     np.testing.assert_allclose(got.sum(axis=1), whole, rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("quant", [None, "int16", "int8"])
+@pytest.mark.parametrize("kind", ["repeat", "distinct"])
+def test_segment_fused_edge_documents_match_jax_kernel(kind, quant):
+    """One gram repeated to the width, and random bytes with a row of their
+    own per window (both input routes of the exact12 LUT layout): the port's
+    plain version against the JAX fused segment kernel, f32 within
+    ``atol=1e-4, rtol=1e-5``, integer tables bit for bit, the argmax of
+    every live cell identical."""
+    spec, jspec, w, lut, batch, lengths, lim = _edge_case(kind, "lut_exact12_n1_5", 20, PAD)
+    ft = SF.build_fused_tables(w, lut, spec, quant)
+    cell = CELLS[(quant is not None) + (quant == "int8")]
+    got = _port(ft, batch, lengths, lim, spec, cell)
+    ref = _jax(w, lut, jspec, quant, batch, lengths, lim, cell)
+    live = ~_dead_cells(lengths, lim, cell, got.shape[1])
+    assert np.count_nonzero(ref[live].any(axis=1)) >= live.sum() - 1  # the cells score
+    if quant is None:
+        np.testing.assert_allclose(got, ref, atol=1e-4, rtol=1e-5)
+    else:
+        np.testing.assert_array_equal(got, ref)
+    np.testing.assert_array_equal(np.argmax(got[live], axis=1), np.argmax(ref[live], axis=1))
+    assert not got[~live].any()
+
+
 def test_segment_fused_cell_width_is_checked_with_the_jax_message():
     spec, _, w, lut, batch, lengths, lim = _case("dense_exact_bigram", 3)
     ft = SF.build_fused_tables(w, lut, spec)
@@ -175,15 +198,26 @@ def test_segment_wrapper_takes_plain_version_only_on_cpu():
 
 
 @pytest.mark.cuda
-def test_fused_segment_kernel_matches_plain_on_the_card():
+@pytest.mark.parametrize("kind", ["edges", "repeat", "distinct"])
+def test_fused_segment_kernel_matches_plain_on_the_card(kind):
     """Launches ``csrc/fused_segment.cu`` (built with nvcc on first use) and
-    holds it against the plain version: f32 within the reduction-order
-    tolerance, int8 bit for bit."""
+    holds it against the plain version: on edge documents, on one gram
+    repeated to the width, and on random bytes 4,100 wide whose cells (2048
+    wide too) hold more distinct rows than the kernel's row-count table.
+    f32 within the reduction-order tolerance and bit-identical across two
+    launches, int8/int16 bit for bit."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card and nvcc: the kernel has no CPU form")
     dev = torch.device("cuda", 0)
-    spec, _, w, lut, batch, lengths, lim = _case("lut_exact12_n1_5", 5)
-    for quant in (None, "int8"):
+    cells = CELLS
+    if kind == "edges":
+        spec, _, w, lut, batch, lengths, lim = _case("lut_exact12_n1_5", 5)
+    elif kind == "repeat":
+        spec, _, w, lut, batch, lengths, lim = _edge_case(kind, "lut_exact12_n1_5", 5, 1300)
+    else:
+        spec, _, w, lut, batch, lengths, lim = _edge_case(kind, "lut_exact12_n1_5", 5, 4100)
+        cells = (128, 512, 2048)
+    for quant in (None, "int16", "int8"):
         ft = SF.build_fused_tables(w, lut, spec, quant)
         inp = SF.prepare_fused_inputs(
             torch.from_numpy(batch).to(dev), torch.from_numpy(lengths).to(dev),
@@ -191,14 +225,16 @@ def test_fused_segment_kernel_matches_plain_on_the_card():
             spec, ft.layout,
         )
         wq, scales = torch.from_numpy(ft.wq).to(dev), torch.from_numpy(ft.scales).to(dev)
-        for cell in CELLS:
+        for cell in cells:
             launches = _kernels.FUSED_SEGMENT.launches
             got = SF.fused_segment(inp, wq, scales, ft.layout, cell)
+            again = SF.fused_segment(inp, wq, scales, ft.layout, cell)
             torch.cuda.synchronize()
-            assert _kernels.FUSED_SEGMENT.launches == launches + 1
+            assert _kernels.FUSED_SEGMENT.launches == launches + 2
             ref = SF.fused_segment_plain(inp, wq, scales, ft.layout, cell)
             if quant is None:
                 torch.testing.assert_close(got, ref, atol=1e-4, rtol=1e-5)
+                assert torch.equal(got, again)
             else:
                 assert torch.equal(got, ref)
 
