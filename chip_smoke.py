@@ -5,6 +5,9 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py           # every phase; the last line is the verdict
     python3 chip_smoke.py --quick   # phases 1-3 only (build + kernel checks)
+    python3 chip_smoke.py --baseline OLD   # also builds the kernels of OLD,
+                                    # another version's checkout (or its csrc/),
+                                    # and times them in turns with these
 
 Phases, one line or more each; any failure exits non-zero before the verdict:
 
@@ -19,7 +22,10 @@ Phases, one line or more each; any failure exits non-zero before the verdict:
    of two launches bit-identical; int8/int16 at the int32 guard's edge;
    the row histogram on both sides of its shared-memory threshold; the
    bigram histogram (mask_n 1 and 2) and bigram score (L = 3 and 16) over
-   edge documents with and without window limits; fused segment over the
+   edge documents with and without window limits, the bigram score also
+   (L = 3, 10, 16) on repeated-gram batches (held against a float64 sum)
+   and random-byte ones (which flush its key counts), two launches
+   bit-identical; fused segment over the
    same five layouts x {f32, int16, int8} x cell {128, 256, 512} (2048 on
    the random bytes) on the same three kinds of batch, widths no cell
    multiple, with unaligned window limits, skipped cells exactly zero;
@@ -29,8 +35,9 @@ Phases, one line or more each; any failure exits non-zero before the verdict:
    synthetic corpus, checked against the plain version on the card and the
    host float64 scorer, then again with int16 and int8 tables;
 5. times    — the kernel, its plain version and ``embedding_bag`` at the
-   runner's largest config-5 batch (CUDA events), the kernel's lower bound,
-   and end-to-end transform docs/s;
+   runner's largest config-5 batch (CUDA events on a held card; each
+   kernel in turns with its ``--baseline`` builds, whose outputs are
+   compared with its), the kernel's lower bound, and end-to-end docs/s;
 6. config3  — bench config 3 (50 languages, exact n = 1..5, profile 1,000;
    cuckoo membership): fit → transform through the hybrid strategy, i.e.
    the bigram-histogram kernel (n <= 2) and the row-histogram kernel
@@ -38,12 +45,14 @@ Phases, one line or more each; any failure exits non-zero before the verdict:
    against the plain versions on the card and the host float64 scorer;
    scores unchanged with TF32 allowed process-wide;
 7. kernel5  — the bigram-score kernel's paths: the same exact n = 1..5
-   shape at 10 languages (auto → hybrid) and bench config 1 (3 languages,
-   exact bigrams, profile 2,000) with strategy='pallas';
+   shape at 10 languages (auto → hybrid; then a warm transform's docs/s and
+   the device's busy share) and bench config 1 (3 languages, exact bigrams,
+   profile 2,000) with strategy='pallas';
 8. times    — the three histogram-side kernels at the config-3 runner's
    largest batch: kernel, plain version, lower bound and one library call
-   each (``bincount``, ``bincount``, ``embedding_bag``), then end-to-end
-   config-3 docs/s and the device's busy share;
+   each (``bincount``, ``bincount``, ``embedding_bag``), the bigram score
+   at L = 10 and 16 and an empty kernel launch beside its bound, then
+   end-to-end config-3 docs/s and the device's busy share;
 9. segment  — the config-5 model with ``resultMode="segment"``, calibrated
    on a held-out split, transforms a code-switched corpus (2-3 blocks of
    ~1,280 bytes, two ~20 KB documents that chunk on a cell-aligned stride,
@@ -285,20 +294,71 @@ def macro_span_f1(truths, results, doc_lens, name_of=lambda lang: lang) -> float
 # ------------------------------------------------------------- helpers -----
 
 
+HOLD_CYCLES = 20_000_000  # about 10 ms of spinning at the H100's clocks
+
+
 def cuda_ms(torch, fn, reps: int, warmup: int = 2) -> float:
-    """Mean milliseconds per call on the card (CUDA events around ``reps``
-    back-to-back calls, after ``warmup`` calls)."""
+    """Mean milliseconds per call on the card: CUDA events around ``reps``
+    back-to-back calls, after ``warmup`` calls, queued while a spin kernel
+    (``torch.cuda._sleep``) keeps the card busy, so the time is the card's
+    and not the host's launch rate (which sets the pace of a kernel shorter
+    than its wrapper's Python)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(HOLD_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _agreement(torch, got, ref) -> str:
+    """How a baseline build's output ``got`` compares with the kernel's
+    ``ref`` (a tensor or a tuple of them): bit-identical, the largest float
+    difference, or the number of labels that differ. A baseline is another
+    version, held to nothing here: a variant that sums in another order
+    may differ by up to twice the tolerance that each meets."""
+    got = got if isinstance(got, tuple) else (got,)
+    ref = ref if isinstance(ref, tuple) else (ref,)
+    notes = []
+    for g, r in zip(got, ref):
+        if torch.equal(g, r):
+            continue
+        if g.is_floating_point():
+            notes.append(f"max abs diff {float((g - r).abs().max()):.3g}")
+        else:
+            notes.append(f"{int((g != r).sum())} labels differ")
+    return ", ".join(notes) or "bit-identical"
+
+
+def timed_in_turns(torch, what: str, run, module, attr: str, baselines, reps: int = 20) -> float:
+    """``cuda_ms`` of ``run``, which launches the kernel that ``module.attr``
+    names, in turns with each baseline build of that kernel (``baselines``:
+    (label, {kernel name: CudaKernel}) pairs, from ``--baseline``): kernel,
+    baselines, baselines in reverse, kernel. Each baseline's output is first
+    compared with the kernel's on the same inputs. Prints every reading and
+    returns the mean of the kernel's two."""
+    name = getattr(module, attr).name
+    builds = [(label, ks[name]) for label, ks in baselines if name in ks]
+    ref = run()
+    agree = []
+    for label, k in builds:
+        with swapped(module, attr, k):
+            agree.append(f"{label} {_agreement(torch, run(), ref)}")
+    times: dict[str, list[float]] = {}
+    for label, k in [("kernel", None), *builds, *reversed(builds), ("kernel", None)]:
+        with swapped(module, attr, k) if k else contextlib.nullcontext():
+            times.setdefault(label, []).append(cuda_ms(torch, run, reps=reps))
+    say("times", f"{what}: " + "; ".join(
+        f"{label} " + ", ".join(f"{t:.4f}" for t in ts) for label, ts in times.items())
+        + " ms (held card, in turns)" + (f"; against the kernel: {'; '.join(agree)}"
+                                         if agree else ""))
+    return float(np.mean(times["kernel"]))
 
 
 def near_tie(scores: np.ndarray) -> np.ndarray:
@@ -692,7 +752,9 @@ def _bigram_edge_batch(rng, pad: int):
 def phase_kernels_hist(torch, dev) -> dict[str, float]:
     """The row-histogram, bigram-histogram and bigram-score kernels against
     their plain versions on the card: counts bit for bit, scores within
-    ATOL/RTOL. Returns the max abs error per kernel."""
+    ATOL/RTOL, two launches of the bigram score bit-identical. Returns the
+    max abs error per kernel."""
+    from spark_languagedetector_tpu_torch.ops import score_fused as SF
     from spark_languagedetector_tpu_torch.ops import score_hist as SH
     from spark_languagedetector_tpu_torch.ops import score_pallas as SP
     from spark_languagedetector_tpu_torch.ops.encoding import pad_batch
@@ -742,21 +804,108 @@ def phase_kernels_hist(torch, dev) -> dict[str, float]:
                     fail(f"bigram_hist S={pad} mask_n={mask_n}: counts differ from "
                          f"the plain version ({int((got != ref).sum())} entries)")
             for L in (3, 16):
-                w1 = torch.from_numpy(rng.normal(size=(256, L)).astype(np.float32)).to(dev)
-                w2 = torch.from_numpy(rng.normal(size=(65536, L)).astype(np.float32)).to(dev)
-                for has1, has2 in ((True, True), (False, True), (True, False)):
-                    got = SP.bigram_score_kernel(bd, ld, md, w1, w2, has1, has2)
-                    torch.cuda.synchronize()
-                    ref = SP.bigram_score_plain(bd, ld, md, w1, w2, has1, has2)
-                    err = float((got - ref).abs().max())
-                    errs["bigram_score"] = max(errs["bigram_score"], err)
-                    if not torch.allclose(got, ref, atol=ATOL, rtol=RTOL):
-                        fail(f"bigram_score S={pad} L={L} has1={has1} has2={has2}: "
-                             f"max abs err {err:.3g}")
+                errs["bigram_score"] = max(errs["bigram_score"], check_bigram_score(
+                    torch, SP, rng, bd, ld, md, L, f"bigram_score edges S={pad}")[0])
         say("kernels", f"bigram_hist S={pad} B={len(docs)} mask_n 1,2 with and without "
             f"limits: bit-exact; bigram_score L=3,16: max abs err "
-            f"{errs['bigram_score']:.3g}")
+            f"{errs['bigram_score']:.3g}, two launches bit-identical")
+    # Bigram score on documents that repeat one gram (hot keys, large
+    # counts) and on random bytes whose distinct bigrams flush the kernel's
+    # key counts several times. Signed weights times counts of 2,000 cancel
+    # to sums far below their terms, so on the repeated grams the kernel is
+    # held against a float64 sum, beside which the plain version's float32
+    # sum over 2,000 windows is shown too.
+    for label, (docs, lim), pad in (("repeat", _repeat_batch(rng, 2048), 2048),
+                                    ("distinct", _distinct_batch(rng, 8192), 8192)):
+        batch, lengths = pad_batch(docs, pad)
+        bd = torch.from_numpy(batch).to(dev)
+        ld = torch.from_numpy(lengths).to(dev)
+        err, plain64 = 0.0, 0.0
+        for limit in (np.full(len(docs), pad, np.int32), lim):
+            md = torch.from_numpy(limit).to(dev)
+            for L in (3, 10, 16):
+                e, p = check_bigram_score(torch, SP, rng, bd, ld, md, L,
+                                          f"bigram_score {label} S={pad}",
+                                          f64=label == "repeat")
+                err, plain64 = max(err, e), max(plain64, p)
+        errs["bigram_score"] = max(errs["bigram_score"], err)
+        ref = (f"the float64 sum (the plain version's float32 sum: max abs err {plain64:.3g})"
+               if label == "repeat" else "the plain version")
+        b0 = bd.long()
+        keys = (torch.arange(len(docs), device=dev)[:, None] * 65536 + b0 * 256
+                + torch.nn.functional.pad(bd[:, 1:], (0, 1)).long())
+        owned = torch.arange(pad, device=dev)[None, :] <= ld.long()[:, None] - 2
+        per_doc = torch.bincount(torch.unique(keys[owned]) // 65536, minlength=len(docs))
+        say("kernels", f"bigram_score {label} B={len(docs)} S={pad} L=3,10,16 with and "
+            f"without limits: max abs err {err:.3g} against {ref}, two launches "
+            f"bit-identical; up to "
+            f"{int(per_doc.max())} distinct bigrams in a document (the kernel holds "
+            f"{SF.FUSED_MAX_ROWS} before a flush)")
     return errs
+
+
+def random_bigram_weights(torch, rng, L: int, dev):
+    """(w1 [256, L], w2 [65536, L]) float32 on ``dev``, standard normal."""
+    return tuple(torch.from_numpy(rng.normal(size=(n, L)).astype(np.float32)).to(dev)
+                 for n in (256, 65536))
+
+
+def bigram_score_f64(torch, bd, ld, md, w1, w2, has1: bool, has2: bool):
+    """The bigram score summed in float64, one sum a document: the plain
+    version's function without its float32 accumulator."""
+    B, S = bd.shape
+    s = torch.arange(S, device=bd.device)[None, :]
+    b0 = bd.long()
+    b1 = torch.nn.functional.pad(bd[:, 1:], (0, 1)).long()
+    owned = s < md.long()[:, None]
+    out = torch.zeros((B, w1.shape[1]), dtype=torch.float64, device=bd.device)
+    if has2:
+        m2 = (s <= ld.long()[:, None] - 2) & owned
+        out += (w2.double()[b0 * 256 + b1] * m2[..., None]).sum(dim=1)
+    if has1:
+        m1 = (s <= ld.long()[:, None] - 1) & owned
+        out += (w1.double()[b0] * m1[..., None]).sum(dim=1)
+    return out
+
+
+def check_bigram_score(torch, SP, rng, bd, ld, md, L: int, what: str, w=None,
+                       f64: bool = False) -> tuple[float, float]:
+    """The bigram-score kernel on one batch for has1+has2, has2 and has1
+    (random weights from ``rng`` unless ``w`` = (w1, w2) is given), held
+    within ATOL/RTOL of its plain version, or with ``f64`` of a float64 sum;
+    two launches bit-identical. Returns the kernel's max abs error and, with
+    ``f64``, the plain version's from the float64 sum (else 0)."""
+    w1, w2 = w if w is not None else random_bigram_weights(torch, rng, L, bd.device)
+    err, plain_err = 0.0, 0.0
+    for has1, has2 in ((True, True), (False, True), (True, False)):
+        got = SP.bigram_score_kernel(bd, ld, md, w1, w2, has1, has2)
+        again = SP.bigram_score_kernel(bd, ld, md, w1, w2, has1, has2)
+        torch.cuda.synchronize()
+        case = f"{what} L={L} has1={has1} has2={has2}"
+        if not torch.equal(got, again):
+            fail(f"{case}: two launches on the same batch differ "
+                 f"(max abs {float((got - again).abs().max()):.3g})")
+        ref = SP.bigram_score_plain(bd, ld, md, w1, w2, has1, has2)
+        if f64:
+            exact = bigram_score_f64(torch, bd, ld, md, w1, w2, has1, has2)
+            plain_err = max(plain_err, float((ref.double() - exact).abs().max()))
+            ref = exact
+        e = float((got.double() - ref.double()).abs().max())
+        if not torch.allclose(got.double(), ref.double(), atol=ATOL, rtol=RTOL):
+            fail(f"{case}: max abs err {e:.3g}")
+        err = max(err, e)
+    return err, plain_err
+
+
+@contextlib.contextmanager
+def swapped(module, name: str, value):
+    """``module.name`` set to ``value`` for the duration."""
+    real = getattr(module, name)
+    setattr(module, name, value)
+    try:
+        yield
+    finally:
+        setattr(module, name, real)
 
 
 @contextlib.contextmanager
@@ -774,14 +923,10 @@ def plain_version(SF):
              (SH, "row_hist_kernel", SH.row_hist_plain),
              (SP, "bigram_hist_kernel", SP.bigram_hist_plain),
              (SP, "bigram_score_kernel", SP.bigram_score_plain)]
-    real = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
-    for mod, name, plain in swaps:
-        setattr(mod, name, plain)
-    try:
+    with contextlib.ExitStack() as stack:
+        for mod, name, plain in swaps:
+            stack.enter_context(swapped(mod, name, plain))
         yield
-    finally:
-        for mod, name, fn in real:
-            setattr(mod, name, fn)
 
 
 def phase_main(torch, dev):
@@ -915,7 +1060,7 @@ def fused_compulsory_inputs(torch, SF, inp, lay):
     return rows, mask, in_bytes, int(torch.unique(rows[mask]).numel())
 
 
-def phase_times(torch, dev, model, runner, quant_runners, eval_docs):
+def phase_times(torch, dev, model, runner, quant_runners, eval_docs, baselines=()):
     from spark_languagedetector_tpu_torch import Table
     from spark_languagedetector_tpu_torch.ops import score_fused as SF
     from spark_languagedetector_tpu_torch.ops.encoding import pad_batch
@@ -946,11 +1091,15 @@ def phase_times(torch, dev, model, runner, quant_runners, eval_docs):
                                   f"config-5 batch {q}")
         say("times", f"config-5 batch {q} kernel vs plain: max abs err {q_err:.3g}")
 
-    ms = cuda_ms(torch, kernel, reps=20)
-    score_ms = cuda_ms(torch, lambda: kernel(labels=False), reps=20)
+    ms = timed_in_turns(torch, "fused_detect f32 detect", kernel, SF, "FUSED_DETECT",
+                        baselines)
+    score_ms = timed_in_turns(torch, "fused_detect f32 score", lambda: kernel(labels=False),
+                              SF, "FUSED_DETECT", baselines)
     plain_ms = cuda_ms(torch, lambda: SF.fused_plain(
         inp, runner.table, runner.scales, lay, want_labels=True), reps=3, warmup=1)
-    q_ms = {q: cuda_ms(torch, lambda r=r: kernel(r), reps=20) for q, r in quant_runners.items()}
+    q_ms = {q: timed_in_turns(torch, f"fused_detect {q} detect", lambda r=r: kernel(r), SF,
+                              "FUSED_DETECT", baselines)
+            for q, r in quant_runners.items()}
 
     rows, mask, in_bytes, touched = fused_compulsory_inputs(torch, SF, inp, lay)
     weights = mask.to(torch.float32)
@@ -1144,6 +1293,16 @@ def phase_kernel5(torch, dev):
     idx = {l: i for i, l in enumerate(langs)}
     ids = np.asarray([idx[l] for l in pred])
     check_path(torch, SF, "kernel5", runner10, byte_docs, ids, model.profile, 500)
+    table = Table({"fulltext": texts})
+    model.transform(table)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model.transform(table)
+    torch.cuda.synchronize()
+    e2e_s = time.perf_counter() - t0
+    say("kernel5", f"end-to-end 10-language transform of {len(texts)} docs: {e2e_s:.3f}s = "
+        f"{len(texts) / e2e_s:.0f} docs/s (host clock, warm)")
+    device_breakdown(torch, lambda: model.transform(table), e2e_s * 1e3)
 
     langs3 = language_names(3)
     train, train_labels = make_corpus(langs3, 60 * len(langs3), seed=1)
@@ -1183,11 +1342,12 @@ def _kernel_entry(name, source, replaces, launches, err, ms, plain_ms, bytes_, o
 
 
 def phase_times_hist(torch, dev, model, runner, runner10, eval_docs, launches3, launches10,
-                     errs) -> list[dict]:
+                     errs, baselines=()) -> list[dict]:
     """The three kernels at the config-3 runner's largest batch (bigram score
-    with the 10-language runner's weights), their plain versions, their
-    bounds and one library call each; then the end-to-end config-3
-    transform and the device's busy share."""
+    with the 10-language runner's weights, and at L = 16), their plain
+    versions, their bounds and one library call each, and an empty kernel
+    launch; then the end-to-end config-3 transform and the device's busy
+    share."""
     from spark_languagedetector_tpu_torch import Table
     from spark_languagedetector_tpu_torch.ops import score_hist as SH
     from spark_languagedetector_tpu_torch.ops import score_pallas as SP
@@ -1229,7 +1389,8 @@ def phase_times_hist(torch, dev, model, runner, runner10, eval_docs, launches3, 
     out.append(_kernel_entry(
         "row_hist", "row_hist.cu", "spark_languagedetector_tpu/ops/score_hist.py:67",
         launches3["row_hist"], max(errs["row_hist"], err3),
-        cuda_ms(torch, lambda: SH.row_hist_kernel(rows, vmax, W, h.rhi, miss), reps=20),
+        timed_in_turns(torch, "row_hist", lambda: SH.row_hist_kernel(rows, vmax, W, h.rhi, miss),
+                       SH, "ROW_HIST", baselines),
         cuda_ms(torch, lambda: SH.row_hist_plain(rows, vmax, W, h.rhi, miss), reps=3,
                 warmup=1),
         int(read.sum()) * 4 + B * 4 + B * R * 4, int(valid.sum()),
@@ -1250,21 +1411,23 @@ def phase_times_hist(torch, dev, model, runner, runner10, eval_docs, launches3, 
         "bigram_hist", "bigram_hist.cu",
         "spark_languagedetector_tpu/ops/score_pallas.py:177",
         launches3["bigram_hist"], max(errs["bigram_hist"], err4),
-        cuda_ms(torch, lambda: SP.bigram_hist_kernel(batch, lengths, lim, 2), reps=20),
+        timed_in_turns(torch, "bigram_hist", lambda: SP.bigram_hist_kernel(batch, lengths, lim, 2),
+                       SP, "BIGRAM_HIST", baselines),
         cuda_ms(torch, lambda: SP.bigram_hist_plain(batch, lengths, lim, 2), reps=3,
                 warmup=1),
         int(window_bytes(lengths, lim, 2).sum()) + B * 8 + B * 65536 * 4, int(m2.sum()),
         cuda_ms(torch, lambda: torch.bincount(idx4, minlength=B * 65536), reps=5,
                 warmup=1)))
 
-    # Kernel 5: the bigram score, with the 10-language hybrid's weights.
+    # Kernel 5: the bigram score, with the 10-language hybrid's weights (the
+    # path's L) and with random weights at L = 16, the widest it takes.
     st = runner10.pallas_state
     L = st.w1.shape[1]
+    w16 = random_bigram_weights(torch, np.random.default_rng(5), 16, dev)
+    err5 = max(check_bigram_score(torch, SP, None, batch, lengths, lim, w[0].shape[1],
+                                  "config-3 batch bigram_score", w=w)[0]
+               for w in ((st.w1, st.w2), w16))
     got = SP.bigram_score_kernel(batch, lengths, lim, st.w1, st.w2, True, True)
-    ref = SP.bigram_score_plain(batch, lengths, lim, st.w1, st.w2, True, True)
-    err5 = float((got - ref).abs().max())
-    if not torch.allclose(got, ref, atol=ATOL, rtol=RTOL):
-        fail(f"config-3 batch: bigram_score differs from the plain version ({err5:.3g})")
     m1 = s <= lengths.long()[:, None] - 1
     table = torch.cat([st.w2, st.w1])  # [65536 + 256, L]
     bag = torch.cat([b0 * 256 + b1, 65536 + b0], dim=1)
@@ -1272,23 +1435,32 @@ def phase_times_hist(torch, dev, model, runner, runner10, eval_docs, launches3, 
     lib = lambda: torch.nn.functional.embedding_bag(  # noqa: E731
         bag, table, mode="sum", per_sample_weights=bag_w)
     lib_err = float((lib() - got).abs().max())
-    say("times", f"embedding_bag vs bigram_score: max abs err {lib_err:.3g}")
+    say("times", f"config-3 batch bigram_score at L={L} and L=16, has1/has2 combinations: "
+        f"max abs err {err5:.3g} vs the plain version, two launches bit-identical; "
+        f"embedding_bag vs bigram_score: max abs err {lib_err:.3g}")
     pairs2 = int(torch.unique(idx4).numel())
     pairs1 = int(torch.unique((doc * 256 + b0)[m1]).numel())
     touched = int(torch.unique((b0 * 256 + b1)[m2]).numel())
+    k5_ms, _ = (timed_in_turns(
+        torch, f"bigram_score L={w[0].shape[1]}",
+        lambda w=w: SP.bigram_score_kernel(batch, lengths, lim, *w, True, True), SP,
+        "BIGRAM_SCORE", baselines, reps=50) for w in ((st.w1, st.w2), w16))
     out.append(_kernel_entry(
         "bigram_score", "bigram_score.cu",
         "spark_languagedetector_tpu/ops/score_pallas.py:119",
-        launches10["bigram_score"], max(errs["bigram_score"], err5),
-        cuda_ms(torch, lambda: SP.bigram_score_kernel(batch, lengths, lim, st.w1, st.w2,
-                                                      True, True), reps=20),
+        launches10["bigram_score"], max(errs["bigram_score"], err5), k5_ms,
         cuda_ms(torch, lambda: SP.bigram_score_plain(batch, lengths, lim, st.w1, st.w2,
                                                      True, True), reps=3, warmup=1),
         int(torch.maximum(window_bytes(lengths, lim, 1), window_bytes(lengths, lim, 2)).sum())
         + B * 8 + (touched + 256) * L * 4 + B * L * 4, 2 * (pairs2 + pairs1) * L,
         cuda_ms(torch, lib, reps=5, warmup=1)))
-    say("times", f"bigram_score at L={L}: {pairs2} distinct (doc, bigram) and {pairs1} "
-        f"distinct (doc, byte) pairs, {touched} w2 rows touched")
+    say("times", f"bigram_score at L={L}: {int(m2.sum())} counted bigram windows, {pairs2} "
+        f"distinct (doc, bigram) and {pairs1} distinct (doc, byte) pairs, {touched} w2 rows "
+        f"touched")
+    floor_ms = cuda_ms(torch, lambda: torch.cuda._sleep(0), reps=200)
+    say("times", f"empty kernel launch (torch.cuda._sleep(0): one thread, no work) "
+        f"{floor_ms:.4f} ms per launch, back to back on a held card, beside bigram_score's "
+        f"bound {out[-1]['bound_ms']:.6f} ms and its {k5_ms:.4f} ms")
 
     table = Table({"fulltext": eval_docs})
     model.transform(table)
@@ -1449,7 +1621,7 @@ def phase_segment(torch, dev, model, main_ids, main_docs):
 
 
 def phase_times_segment(torch, dev, runner, quant_runners, inp, launches: int,
-                        errs: float) -> dict:
+                        errs: float, baselines=()) -> dict:
     """The fused-segment kernel at the runner's largest config-5 batch (the
     batch phase 5 timed the fused-detect kernel on), cell 256: kernel (f32,
     and the int16 and int8 tables, each held bit for bit against its plain
@@ -1470,8 +1642,8 @@ def phase_times_segment(torch, dev, runner, quant_runners, inp, launches: int,
         fail(f"config-5 batch: fused_segment differs from the plain version ({err:.3g})")
     say("times", f"config-5 batch B={B} x S={S}, cell {cell} ({C} cells): fused_segment vs "
         f"plain max abs err {err:.3g}")
-    ms = cuda_ms(torch, lambda: SF.fused_segment_kernel(
-        inp, runner.table, runner.scales, lay, cell), reps=20)
+    ms = timed_in_turns(torch, "fused_segment f32", lambda: SF.fused_segment_kernel(
+        inp, runner.table, runner.scales, lay, cell), SF, "FUSED_SEGMENT", baselines)
     q_ms = {}
     for q, r in quant_runners.items():
         qinp = SF.prepare_fused_inputs(inp.batch, inp.lengths, r.table_lut, None, r.spec,
@@ -1479,8 +1651,9 @@ def phase_times_segment(torch, dev, runner, quant_runners, inp, launches: int,
         if not torch.equal(SF.fused_segment_kernel(qinp, r.table, r.scales, r.layout, cell),
                            SF.fused_segment_plain(qinp, r.table, r.scales, r.layout, cell)):
             fail(f"config-5 batch: fused_segment {q} differs from the plain version")
-        q_ms[q] = cuda_ms(torch, lambda qinp=qinp, r=r: SF.fused_segment_kernel(
-            qinp, r.table, r.scales, r.layout, cell), reps=20)
+        q_ms[q] = timed_in_turns(torch, f"fused_segment {q}", lambda qinp=qinp, r=r:
+                                 SF.fused_segment_kernel(qinp, r.table, r.scales, r.layout,
+                                                         cell), SF, "FUSED_SEGMENT", baselines)
     say("times", f"fused_segment f32 {ms:.4f} ms, "
         + ", ".join(f"{q} {t:.4f} ms (bit-identical to its plain version)"
                     for q, t in q_ms.items()))
@@ -1566,6 +1739,10 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--quick", action="store_true",
                     help="stop after the kernel checks (phases 1-3)")
+    ap.add_argument("--baseline", type=Path, metavar="DIR", action="append", default=[],
+                    help="another version's checkout, or its csrc/ directory: every kernel "
+                    "whose source it holds (same C entry point) is built from it and timed "
+                    "in turns with this checkout's; repeatable")
     args = ap.parse_args()
 
     if not (ROOT / "spark_languagedetector_tpu_torch" / "__init__.py").is_file():
@@ -1586,7 +1763,20 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
     smi_line = phase_device(torch)
-    phase_build(KERNELS)
+    from spark_languagedetector_tpu_torch.ops._kernels import CudaKernel
+
+    baselines = []
+    for i, base in enumerate(args.baseline):
+        csrc = base / "spark_languagedetector_tpu_torch" / "csrc"
+        csrc = csrc if csrc.is_dir() else base
+        builds = {k.name: CudaKernel(f"baseline{i}_{k.name}",
+                                     str((csrc / k.source.name).resolve()), k.symbol,
+                                     k.argtypes, k.restype)
+                  for k in KERNELS if (csrc / k.source.name).is_file()}
+        if not builds:
+            fail(f"--baseline {base}: no kernel source there")
+        baselines.append((base.resolve().name, builds))
+    phase_build(KERNELS + tuple(k for _, builds in baselines for k in builds.values()))
     kernel_err = phase_kernels(torch, dev)
     hist_errs = phase_kernels_hist(torch, dev)
     segment_err = phase_kernels_segment(torch, dev)
@@ -1595,14 +1785,16 @@ def main() -> None:
         return
     model, runner, quant_runners, main_docs, main_ids, eval_docs, launches = phase_main(
         torch, dev)
-    c5_err, times, c5_inp = phase_times(torch, dev, model, runner, quant_runners, eval_docs)
+    c5_err, times, c5_inp = phase_times(torch, dev, model, runner, quant_runners, eval_docs,
+                                        baselines)
     model3, runner3, eval3, launches3 = phase_config3(torch, dev)
     runner10, launches10 = phase_kernel5(torch, dev)
     hist_entries = phase_times_hist(torch, dev, model3, runner3, runner10, eval3,
-                                    launches3, launches10, hist_errs)
+                                    launches3, launches10, hist_errs, baselines)
     seg_launches, seg_path_err = phase_segment(torch, dev, model, main_ids, main_docs)
     segment_entry = phase_times_segment(torch, dev, runner, quant_runners, c5_inp,
-                                        seg_launches, max(segment_err, seg_path_err))
+                                        seg_launches, max(segment_err, seg_path_err),
+                                        baselines)
     phase_segment3(torch, dev, model3)
     bad = [k for k in ("jax", "jaxlib", "spark_languagedetector_tpu") if k in sys.modules]
     if bad:

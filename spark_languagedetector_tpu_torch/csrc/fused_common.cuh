@@ -1,37 +1,52 @@
-// What the fused detect and fused segment kernels share: the inline
-// window-id plan and its arithmetic, the accumulator type per table dtype,
-// the launch geometry, and the core both run per block: count the block's
-// windows per distinct table row in a shared-memory hash table, then read
-// each distinct row of the table once and add count x row into the
-// thread's language columns.
+// What the CUDA kernels of the port share: the count -> order -> gather
+// core that the fused detect, fused segment and bigram score kernels run
+// per block, and, for the two fused kernels, the inline window-id plan and
+// its arithmetic, the accumulator type per table dtype and the launch
+// geometry.
 //
 // The core, per block (one document, or one (document, cell)):
 //   1. Count. A pass takes kPassWindows windows per thread and computes
-//      their rows first, so their loads overlap. Then, in rounds of one
-//      window per thread, lanes of a warp that hold the same row form a
-//      group (__match_any_sync) and its lowest lane inserts the group's
-//      size, so a hot row costs one atomic per warp. Inserts probe an
+//      their rows first, so their loads overlap. Inserts probe an
 //      open-addressing table of kSlots (row -> uint32 count) with
 //      atomicCAS/atomicAdd; rows outside [0, R) (masked windows) are
-//      dropped first. Each insert round ends with one __syncthreads_count,
-//      whose result (the keys new in the round) keeps every thread's copy
-//      of the distinct-row count equal.
-//   2. Flush. Before a round that could take the table past kMaxFill
-//      distinct rows (load factor 1/2), and after the last pass, steps 3-4
-//      run on what is held and the table is cleared. Any document length
-//      and any cell width work in the same 24 KB of shared memory.
-//   3. Order. The occupied slots are compacted into a list and, for f32
-//      tables, bitonic-sorted by row: slot order after concurrent inserts
-//      is not deterministic, the sorted order is, so two launches on the
-//      same batch give bit-identical f32 scores. Integer sums are exact and
-//      order-free, so integer tables skip the sort.
-//   4. Gather. Every thread owns one (up to four) language columns and sums
-//      count x wq[row, column] over the list with eight independent
-//      accumulators, eight loads in flight per thread; a warp reads
-//      consecutive columns of one table row, so the loads are coalesced.
-//      f32 tables: f32 products summed in f32; int8/int16 tables: int32
-//      products and sums (exact whenever the wrapper's windows x qmax
-//      < 2^31 guard holds, since the counts sum to the windows).
+//      dropped first; where the table lists claims (RowCounts), the
+//      thread that claims a slot appends it to the block's list. Every
+//      lane inserts its own window: grouping a warp's equal rows with
+//      __match_any_sync into one insert measured 4-19% slower for the
+//      fused kernels (PERF.md). Two window orders, each the faster one
+//      where it is used:
+//        * strided (the fused kernels): thread t takes windows
+//          base + u * nt + t, so a warp's loads are coalesced; in rounds of
+//          one window per thread, each ending with one __syncthreads_count,
+//          whose result (the rows new in the round) keeps every thread's
+//          copy of the distinct-row count equal;
+//        * blocked (the bigram score): thread t takes the kPassWindows
+//          consecutive windows from base + kPassWindows * t, so it can read
+//          their bytes in one wide load, and the pass ends with one barrier
+//          behind which the warps' counts of new rows update the
+//          distinct-row count; it needs kPassWindows * nt <= kMaxFill.
+//   2. Flush. Before a round (or pass) that could take the table past
+//      kMaxFill distinct rows (load factor 1/2), and after the last pass,
+//      steps 3-4 run on what is held and the claimed slots are emptied.
+//      Any document length and any cell width work in the same 25 KB of
+//      shared memory.
+//   3. Order. The held slots become (row << 32) | count entries and,
+//      where the sums are floating point, are bitonic-sorted by row (the
+//      stages within 64 entries in registers, through shuffles): slot and
+//      claim order after concurrent inserts are not deterministic, the
+//      sorted order is, so two launches on the same batch give
+//      bit-identical f32 scores. Integer sums are exact and order-free, so
+//      integer tables skip the sort.
+//   4. Gather: a step of the kernel's own, handed the list. The fused
+//      kernels' gather_rows gives every thread one (up to four) language
+//      columns and sums count x wq[row, column] over the list with eight
+//      independent accumulators, eight loads in flight per thread; a warp
+//      reads consecutive columns of one table row, so the loads are
+//      coalesced. f32 tables: f32 products summed in f32; int8/int16
+//      tables: int32 products and sums (exact whenever the wrapper's
+//      windows x qmax < 2^31 guard holds, since the counts sum to the
+//      windows). The bigram score kernel gathers whole rows instead, one
+//      list entry per thread (bigram_score.cu).
 
 #pragma once
 
@@ -55,6 +70,7 @@ constexpr int kPassWindows = 4;         // windows per thread in a pass
 // A round inserts at most one new row per thread, so a flush before a
 // round that could pass kMaxFill always leaves room for the round.
 static_assert(kMaxFill >= kMaxThreads, "a round must fit into an empty table");
+static_assert(kMaxFill % 64 == 0, "the sort's chunks tile the list");
 
 enum InlineKind { kPoly = 0, kFnvMask = 1, kFnvFold = 2 };
 
@@ -94,16 +110,27 @@ __device__ __forceinline__ int inline_row(const uint8_t* w, int n, int kind,
   return static_cast<int>(p1 + h % p2);
 }
 
-// One block's row counts. keys[s] is -1 for an empty slot; a list entry is
-// (row << 32) | count.
+// One block's row counts. keys[s] is -1 for an empty slot; a flush leaves
+// list[0, n) holding the entries (row << 32) | count. With kListClaims the
+// thread that claims a slot appends it to list[0, fill) while the block
+// counts, so a flush visits only the claimed slots; without, a flush scans
+// all kSlots. Listing pays where a block has few rounds per flush (a cell,
+// a short document) and costs where it has many, since each append adds an
+// atomic to its round: each kernel takes the one measured faster for it
+// (PERF.md). new_rows[p & 1][w] is warp w's count of rows new in pass p of
+// the blocked order.
+template <bool kListClaims>
 struct RowCounts {
+  static constexpr bool list_claims = kListClaims;
   int32_t keys[kSlots];
   uint32_t counts[kSlots];
   unsigned long long list[kMaxFill];
   int fill;
+  int new_rows[2][kMaxThreads / 32];
 };
 
-__device__ __forceinline__ void clear_counts(RowCounts& t, int tid, int nt) {
+template <typename Table>
+__device__ __forceinline__ void clear_counts(Table& t, int tid, int nt) {
   for (int s = tid; s < kSlots; s += nt) {
     t.keys[s] = -1;
     t.counts[s] = 0;
@@ -112,33 +139,73 @@ __device__ __forceinline__ void clear_counts(RowCounts& t, int tid, int nt) {
   __syncthreads();
 }
 
-// Step 1 for one window per thread; every thread of the block calls it
-// (r < 0 where a thread has no window). Returns true to the thread whose
-// insert claimed a new slot.
-__device__ __forceinline__ bool insert_row(RowCounts& t, int r) {
-  const unsigned peers = __match_any_sync(0xffffffffu, r);
-  if (r < 0 || static_cast<int>(threadIdx.x & 31) != __ffs(peers) - 1)
-    return false;
-  const uint32_t c = __popc(peers);
+// A row's first probe slot.
+__device__ __forceinline__ unsigned home_slot(int r) {
+  return (static_cast<uint32_t>(r) * 2654435761u) >> (32 - kSlotBits);
+}
+
+// Step 1 for one window (r < 0 where the thread has none). Returns true to
+// the thread whose insert claimed a new slot.
+template <typename Table>
+__device__ __forceinline__ bool insert_row(Table& t, int r) {
+  if (r < 0) return false;
   volatile int32_t* keys = t.keys;
-  unsigned s = (static_cast<uint32_t>(r) * 2654435761u) >> (32 - kSlotBits);
+  unsigned s = home_slot(r);
   for (;;) {
     int k = keys[s];
     if (k == -1) k = atomicCAS(&t.keys[s], -1, r);
     if (k == -1 || k == r) {
-      atomicAdd(&t.counts[s], c);
+      atomicAdd(&t.counts[s], 1u);
+      if (Table::list_claims && k == -1) t.list[atomicAdd(&t.fill, 1)] = s;
       return k == -1;
     }
     s = (s + 1) & (kSlots - 1);  // never full: at most kMaxFill keys
   }
 }
 
-// Step 3's sort: ascending bitonic sort of list[0, p), p a power of two;
-// every stage ends with a barrier.
+constexpr int kChunk = 64;  // sort entries a warp holds in registers
+
+// The bitonic stages j = min(k1, kChunk) / 2 .. 1 of the steps k = k0 .. k1
+// (powers of two) on every kChunk-entry chunk of list[0, p): a warp takes a
+// chunk at a time, lane l holding its entries 2l and 2l + 1 in registers,
+// so a stage needs shuffles or nothing, never a barrier. Ends with a
+// barrier.
+__device__ __forceinline__ void sort_chunks(unsigned long long* list, int p,
+                                            int k0, int k1, int tid, int nt) {
+  const int lane = tid & 31;
+  for (int c = (tid >> 5) * kChunk; c < p; c += (nt >> 5) * kChunk) {
+    const int i = c + 2 * lane;  // the lane's first entry
+    unsigned long long a0 = list[i], a1 = list[i + 1];
+    for (int k = k0; k <= k1; k <<= 1) {
+      const bool up = (i & k) == 0;  // ascending run
+      for (int j = min(k, kChunk) >> 1; j > 1; j >>= 1) {
+        // Partners sit in lanes l and l ^ (j / 2); the one whose entry has
+        // bit j clear is the lower of the pair.
+        const unsigned long long b0 = __shfl_xor_sync(0xffffffffu, a0, j >> 1);
+        const unsigned long long b1 = __shfl_xor_sync(0xffffffffu, a1, j >> 1);
+        const bool keep_min = ((i & j) == 0) == up;
+        a0 = keep_min ? min(a0, b0) : max(a0, b0);
+        a1 = keep_min ? min(a1, b1) : max(a1, b1);
+      }
+      const unsigned long long lo = min(a0, a1), hi = max(a0, a1);  // j = 1
+      a0 = up ? lo : hi;
+      a1 = up ? hi : lo;
+    }
+    list[i] = a0;
+    list[i + 1] = a1;
+  }
+  __syncthreads();
+}
+
+// Step 3's sort: ascending bitonic sort of list[0, p), p a power of two and
+// at least kChunk. Stages of a step whose pairs lie within kChunk entries
+// run in registers (sort_chunks); the wider ones pair entries through
+// shared memory, one barrier each. Ends with a barrier.
 __device__ __forceinline__ void sort_list(unsigned long long* list, int p,
                                           int tid, int nt) {
-  for (int k = 2; k <= p; k <<= 1) {
-    for (int j = k >> 1; j > 0; j >>= 1) {
+  sort_chunks(list, p, 2, kChunk, tid, nt);
+  for (int k = 2 * kChunk; k <= p; k <<= 1) {
+    for (int j = k >> 1; j >= kChunk; j >>= 1) {
       for (int q = tid; q < (p >> 1); q += nt) {
         const int i = 2 * q - (q & (j - 1));  // the pair (i, i + j)
         const unsigned long long a = list[i];
@@ -150,6 +217,7 @@ __device__ __forceinline__ void sort_list(unsigned long long* list, int p,
       }
       __syncthreads();
     }
+    sort_chunks(list, p, k, k, tid, nt);
   }
 }
 
@@ -191,65 +259,128 @@ __device__ __forceinline__ void gather_rows(A (&acc)[kMaxColsPerThread],
   }
 }
 
-// Steps 3-4 on the n distinct rows held, then an empty table. Every thread
-// calls it with the same n; it ends with a barrier.
-template <typename T, typename A>
-__device__ void flush_counts(RowCounts& t, A (&acc)[kMaxColsPerThread], int n,
-                             const T* __restrict__ wq, int L, int tid, int nt) {
+// Steps 3-4 on the n distinct rows held: turn the held slots into list
+// entries and empty them, sort the list by row when `sort`, hand it to
+// gather(list, n), and leave an empty table. Every thread calls it with the
+// same n; it ends with a barrier.
+template <typename Table, typename Gather>
+__device__ void flush_counts(Table& t, int n, bool sort, int tid, int nt,
+                             Gather gather) {
   if (n == 0) return;
-  for (int s = tid; s < kSlots; s += nt) {
-    const int k = t.keys[s];
-    if (k >= 0) {
-      t.list[atomicAdd(&t.fill, 1)] =
-          (static_cast<unsigned long long>(k) << 32) | t.counts[s];
+  if (Table::list_claims) {
+    for (int i = tid; i < n; i += nt) {
+      const unsigned s = static_cast<unsigned>(t.list[i]);
+      t.list[i] = (static_cast<unsigned long long>(t.keys[s]) << 32) | t.counts[s];
       t.keys[s] = -1;
       t.counts[s] = 0;
     }
+  } else {
+    for (int s = tid; s < kSlots; s += nt) {
+      const int k = t.keys[s];
+      if (k >= 0) {
+        t.list[atomicAdd(&t.fill, 1)] =
+            (static_cast<unsigned long long>(k) << 32) | t.counts[s];
+        t.keys[s] = -1;
+        t.counts[s] = 0;
+      }
+    }
   }
-  if (std::is_same<T, float>::value) {
-    int p = 1;
+  int p = kChunk;
+  if (sort) {
     while (p < n) p <<= 1;
     for (int i = n + tid; i < p; i += nt) t.list[i] = ~0ull;
-    __syncthreads();
-    sort_list(t.list, p, tid, nt);
-  } else {
-    __syncthreads();
   }
-  gather_rows(acc, t.list, n, wq, L, tid, nt);
   __syncthreads();
-  if (tid == 0) t.fill = 0;  // ordered before the next flush by a barrier
+  if (tid == 0) t.fill = 0;  // before the flush's last barrier, so before any insert
+  if (sort) sort_list(t.list, p, tid, nt);
+  gather(static_cast<const unsigned long long*>(t.list), n);
+  __syncthreads();
 }
 
-// Steps 1-2 for the nwin windows w = 0 .. nwin - 1 of one source, whose
-// rows row_of(w) gives; `held` is the distinct-row count, equal in every
-// thread. A pass computes the rows of kPassWindows windows per thread
-// before it inserts any, so their loads are in flight together; then each
-// round inserts one window per thread, after a flush if the round could
-// take the table past kMaxFill.
-template <typename T, typename A, typename RowOf>
-__device__ __forceinline__ void count_windows(RowCounts& t, A (&acc)[kMaxColsPerThread],
-                                              int& held, int nwin, RowOf row_of,
-                                              const T* __restrict__ wq, int R,
-                                              int L, int tid, int nt) {
+// The fused kernels' flush: steps 3-4 into this thread's language columns,
+// the list sorted for f32 tables only.
+template <typename Table, typename T, typename A>
+__device__ __forceinline__ auto column_flush(Table& t,
+                                             A (&acc)[kMaxColsPerThread],
+                                             const T* __restrict__ wq, int L,
+                                             int tid, int nt) {
+  return [&t, &acc, wq, L, tid, nt](int n) {
+    flush_counts(t, n, std::is_same<T, float>::value, tid, nt,
+                 [&](const unsigned long long* list, int m) {
+                   gather_rows(acc, list, m, wq, L, tid, nt);
+                 });
+  };
+}
+
+// Steps 1-2 for nwin windows; `held` is the distinct-row count, equal in
+// every thread, and flush(held) runs steps 3-4. Each pass, rows_of(base, r)
+// computes this thread's kPassWindows rows (-1 where it has no window)
+// before any is inserted, so their loads are in flight together.
+//   * Strided order (kBlocked false): r[u] is window base + u * nt + tid.
+//     Round u inserts r[u] of every thread, after a flush if the round's
+//     windows could take the table past kMaxFill, and ends with a
+//     __syncthreads_count of the rows new in it.
+//   * Blocked order (kBlocked true): r[u] is window base + kPassWindows *
+//     tid + u. The pass inserts all its windows after a flush if they could
+//     take the table past kMaxFill (kPassWindows * nt <= kMaxFill), then
+//     each warp's count of new rows, summed across the block behind one
+//     barrier, updates `held`: one barrier a pass, not one a round.
+template <bool kBlocked, typename Table, typename RowsOf, typename Flush>
+__device__ __forceinline__ void count_passes(Table& t, int& held, int nwin,
+                                             RowsOf rows_of, int R, int nt,
+                                             Flush flush) {
+  int parity = 0;
   for (int base = 0; base < nwin; base += kPassWindows * nt) {
     int r[kPassWindows];
+    rows_of(base, r);
 #pragma unroll
-    for (int u = 0; u < kPassWindows; ++u) {
-      const int w = base + u * nt + tid;
-      r[u] = w < nwin ? row_of(w) : -1;
+    for (int u = 0; u < kPassWindows; ++u)
       if (static_cast<unsigned>(r[u]) >= static_cast<unsigned>(R)) r[u] = -1;
-    }
-#pragma unroll
-    for (int u = 0; u < kPassWindows; ++u) {
-      const int cnt = min(nt, nwin - base - u * nt);  // windows in the round
-      if (cnt <= 0) break;
-      if (held + cnt > kMaxFill) {
-        flush_counts(t, acc, held, wq, L, tid, nt);
+    if (kBlocked) {
+      if (held + min(kPassWindows * nt, nwin - base) > kMaxFill) {
+        flush(held);
         held = 0;
       }
-      held += __syncthreads_count(insert_row(t, r[u]));
+      int claimed = 0;
+#pragma unroll
+      for (int u = 0; u < kPassWindows; ++u) claimed += insert_row(t, r[u]);
+      claimed = __reduce_add_sync(0xffffffffu, claimed);
+      if ((threadIdx.x & 31) == 0) t.new_rows[parity][threadIdx.x >> 5] = claimed;
+      __syncthreads();
+      for (int w = 0; w < (nt >> 5); ++w) held += t.new_rows[parity][w];
+      parity ^= 1;  // the next pass writes the other half while this is read
+    } else {
+#pragma unroll
+      for (int u = 0; u < kPassWindows; ++u) {
+        // Windows in the round: an upper bound of the rows it can add.
+        const int cnt = min(nt, nwin - base - u * nt);
+        if (cnt <= 0) break;
+        if (held + cnt > kMaxFill) {
+          flush(held);
+          held = 0;
+        }
+        held += __syncthreads_count(insert_row(t, r[u]));
+      }
     }
   }
+}
+
+// count_passes in the strided order for the windows w = 0 .. nwin - 1 of
+// one source, whose rows row_of(w) gives.
+template <typename Table, typename RowOf, typename Flush>
+__device__ __forceinline__ void count_windows(Table& t, int& held, int nwin,
+                                              RowOf row_of, int R, int tid,
+                                              int nt, Flush flush) {
+  count_passes<false>(
+      t, held, nwin,
+      [&](int base, int (&r)[kPassWindows]) {
+#pragma unroll
+        for (int u = 0; u < kPassWindows; ++u) {
+          const int w = base + u * nt + tid;
+          r[u] = w < nwin ? row_of(w) : -1;
+        }
+      },
+      R, nt, flush);
 }
 
 // Host side: the plan from the C entry point's arrays; false when it does

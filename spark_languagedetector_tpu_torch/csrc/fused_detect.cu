@@ -39,12 +39,11 @@
 // table loads are distinct (document, row) pairs x L, 224 M there (a
 // document repeats a row about 20 times), and the rest is per window: the
 // row computation (four windows per thread computed before their inserts,
-// so their loads overlap), one __match_any_sync and at most one
-// shared-memory atomic per group of equal rows in a warp, one barrier per
-// round of blockDim windows, and per flush a bitonic sort of up to
-// kMaxFill rows. On an H100 that takes about 0.4 ms, some 8% of the
+// so their loads overlap), one or two shared-memory atomics, one barrier
+// per round of blockDim windows, and per flush a bitonic sort of up to
+// kMaxFill rows. On an H100 that takes about 0.34 ms, some 9.5% of the
 // bytes bound (chip_smoke.py, PERF.md); int8 and int16 tables, which
-// gather a quarter and half the bytes and skip the sort, are only 13-15%
+// gather a quarter and half the bytes and skip the sort, are only 15-21%
 // faster, so the per-window counting and the latency of the gather's
 // loads, not bytes, set the time. Which of the two weighs more is not
 // measured: no profiler counters are read on the card.
@@ -79,7 +78,7 @@ __global__ void __launch_bounds__(1024) fused_detect_kernel(
     int32_t* __restrict__ labels, float* __restrict__ best, int S, int K,
     int W, int R, int L, InlinePlan plan) {
   using A = typename Accum<T>::type;
-  __shared__ RowCounts counts;
+  __shared__ RowCounts<false> counts;  // scans: listing measured slower here
   __shared__ float red_v[32];
   __shared__ int red_i[32];
 
@@ -94,6 +93,7 @@ __global__ void __launch_bounds__(1024) fused_detect_kernel(
   for (int m = 0; m < kMaxColsPerThread; ++m) acc[m] = A(0);
   clear_counts(counts, tid, nt);
   int held = 0;  // distinct rows in the table, the same in every thread
+  const auto flush = column_flush(counts, acc, wq, L, tid, nt);
 
   // Inline lengths: owned window starts are s <= len - n and s < lim.
   const uint8_t* doc = bytes + static_cast<size_t>(b) * S;
@@ -104,9 +104,9 @@ __global__ void __launch_bounds__(1024) fused_detect_kernel(
     const int pr = partial ? prow[static_cast<size_t>(b) * plan.count + j] : -1;
     const int kind = plan.kind[j];
     const uint32_t p1 = plan.p1[j], p2 = plan.p2[j];
-    count_windows(counts, acc, held, nwin, [=](int w) {
+    count_windows(counts, held, nwin, [=](int w) {
       return partial ? pr : inline_row(doc + w, n, kind, p1, p2);
-    }, wq, R, L, tid, nt);
+    }, R, tid, nt, flush);
   }
 
   // Rows plane: K segments of W rows each. No window at or past len is
@@ -114,10 +114,10 @@ __global__ void __launch_bounds__(1024) fused_detect_kernel(
   // scan stops at len.
   for (int k = 0; k < K; ++k) {
     const int32_t* rp = rows + (static_cast<size_t>(b) * K + k) * W;
-    count_windows(counts, acc, held, min(W, len), [=](int w) { return rp[w]; },
-                  wq, R, L, tid, nt);
+    count_windows(counts, held, min(W, len), [=](int w) { return rp[w]; }, R,
+                  tid, nt, flush);
   }
-  flush_counts(counts, acc, held, wq, L, tid, nt);
+  flush(held);
 
   // Epilogue: scale once per (document, language); scores and/or argmax.
   float bv = -INFINITY;

@@ -41,13 +41,13 @@
 // one add per (window, language), a gram repeated in a cell included.
 // Now the table loads are distinct (document, cell, row) triples x L (a
 // cell repeats a row about 8 times on the config-5 batch), and the rest is
-// per window (row computation, __match_any_sync, a shared-memory atomic
-// per group of equal rows in a warp, a barrier per round) and per block:
-// clearing and compacting the 2,048 slots and sorting the rows, which a
-// cell of about 1,200 windows and 150 distinct rows pays in full. On an
-// H100 that takes about 0.9 ms, some 4% of the bytes bound (chip_smoke.py,
-// PERF.md); integer tables are about a quarter faster. Cells past a
-// document's end cost one block that writes L zeros.
+// per window (row computation, one or two shared-memory atomics, a barrier
+// per round) and per block: clearing the 2,048 slots once, then compacting
+// the claimed slots and sorting the rows, which a cell of about 1,200
+// windows and 150 distinct rows pays in full. On an H100 that takes about
+// 0.75 ms, some 5% of the bytes bound (chip_smoke.py, PERF.md); integer
+// tables are 15-19% faster.
+// Cells past a document's end cost one block that writes L zeros.
 
 #include <cuda_runtime.h>
 
@@ -68,7 +68,7 @@ __global__ void __launch_bounds__(1024) fused_segment_kernel(
     const float* __restrict__ scales, float* __restrict__ out, int S, int cell,
     int C, int K, int W, int R, int L, InlinePlan plan) {
   using A = typename Accum<T>::type;
-  __shared__ RowCounts counts;
+  __shared__ RowCounts<true> counts;  // lists: scanning measured slower here
 
   const int b = blockIdx.x / C;
   const int c = blockIdx.x % C;
@@ -94,6 +94,7 @@ __global__ void __launch_bounds__(1024) fused_segment_kernel(
   for (int m = 0; m < kMaxColsPerThread; ++m) acc[m] = A(0);
   clear_counts(counts, tid, nt);
   int held = 0;  // distinct rows in the table, the same in every thread
+  const auto flush = column_flush(counts, acc, wq, L, tid, nt);
 
   // Inline lengths: the cell's owned window starts are off <= s < end with
   // end = min(off + cell, len - n + 1, lim). A document shorter than n has
@@ -107,9 +108,9 @@ __global__ void __launch_bounds__(1024) fused_segment_kernel(
     const int pr = partial ? prow[static_cast<size_t>(b) * plan.count + j] : -1;
     const int kind = plan.kind[j];
     const uint32_t p1 = plan.p1[j], p2 = plan.p2[j];
-    count_windows(counts, acc, held, nwin, [=](int w) {
+    count_windows(counts, held, nwin, [=](int w) {
       return partial ? pr : inline_row(doc + w, n, kind, p1, p2);
-    }, wq, R, L, tid, nt);
+    }, R, tid, nt, flush);
   }
 
   // Rows plane: K segments of W rows each; the cell's entries are positions
@@ -117,10 +118,10 @@ __global__ void __launch_bounds__(1024) fused_segment_kernel(
   for (int k = 0; k < K; ++k) {
     const int32_t* rp = rows + (static_cast<size_t>(b) * K + k) * W + off;
     const int nwin = max(0, min(min(off + cell, W), len) - off);
-    count_windows(counts, acc, held, nwin, [=](int w) { return rp[w]; }, wq, R,
-                  L, tid, nt);
+    count_windows(counts, held, nwin, [=](int w) { return rp[w]; }, R, tid, nt,
+                  flush);
   }
-  flush_counts(counts, acc, held, wq, L, tid, nt);
+  flush(held);
 
   // Epilogue: scale once per (document, cell, language).
 #pragma unroll

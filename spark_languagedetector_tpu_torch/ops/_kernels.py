@@ -86,8 +86,8 @@ class CudaKernel:
 
     @property
     def library_path(self) -> Path:
-        # The shared headers count too: a source may include any of them.
-        headers = b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
+        # The shared headers beside the source count too: it may include any.
+        headers = b"".join(h.read_bytes() for h in sorted(self.source.parent.glob("*.cuh")))
         digest = hashlib.sha256(
             self.source.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
         ).hexdigest()[:16]
