@@ -65,6 +65,27 @@ Phases, one line or more each; any failure exits non-zero before the verdict:
 10. segment3 — the config-3 model (hybrid) segments a smaller corpus through
    the gather cell scorer (cuckoo membership; no kernel on this route)
    and matches the host float64 oracle.
+11. fit5     — ``fitBackend='device'`` at config 5 on the card (the naive
+   finalize over the 0.74 GB int32 count table): the profile bit-identical
+   to phase 4's host fit; count and finalize walls beside the host fit's;
+   the device-fitted model labels phase 4's documents identically through
+   the fused kernel; then both fits, warm, on an eight-fold training corpus
+   (bit-identical profiles);
+12. fit3     — the same at config 3 (the split fit: lengths 1..3 on the card,
+   the blocked finalize over a 3.37 GB table; 4..5 on the host), bit-
+   identical to phase 6's host fit, labels identical through the hybrid
+   kernels; then a parity count table whose tie plateaus cross the block
+   boundaries, where ``top_k_rows``, ``top_k_rows_blocked`` and
+   ``finalize_topk_blocked`` give numpy's (value desc, id asc) top-k;
+13. persist  — save and load on the card (pyarrow; the phase says so and
+   stands aside if pyarrow cannot be imported): the config-5 model in
+   float64 and int8, the calibrated segment model of phase 9 and the
+   config-3 model in the reference (Spark) layout (the float64 model saved
+   from a CPU session, reloaded with no device named); each reload gives the
+   saved model's f32 scores bit for bit and its labels, and the segment
+   model its calibration and per-cell scores.
+
+Each phase prints its seconds.
 
 It imports nothing of JAX. Without a CUDA card, or without the package
 beside it, it exits non-zero and prints no result.
@@ -79,6 +100,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 
@@ -95,6 +117,19 @@ def fail(msg: str) -> None:
 
 def say(phase: str, msg: str) -> None:
     print(f"[{phase}] {msg}", flush=True)
+
+
+class FitCase(NamedTuple):
+    """A host fit of a path, kept for the device-fit phase to compare with:
+    the estimator, its training table, the host-fitted model and its wall,
+    and the evaluation texts with the model's labels (language indices)."""
+
+    det: object
+    table: object
+    model: object
+    host_fit_s: float
+    texts: list
+    ids: np.ndarray
 
 
 # ------------------------------------------------------------- corpus ------
@@ -939,10 +974,12 @@ def phase_main(torch, dev):
     t0 = time.perf_counter()
     det = (LanguageDetector(langs, [1, 2, 3, 4, 5], 400, device=str(dev))
            .set_vocab_mode("hashed").set_hash_bits(20))
-    model = det.fit(Table({"lang": train_labels, "fulltext": train}))
+    train_table = Table({"lang": train_labels, "fulltext": train})
+    model = det.fit(train_table)
+    host_fit_s = time.perf_counter() - t0
     p = model.profile
     say("main", f"fit {len(train)} docs ({sum(map(len, train)) / 1e6:.2f} MB) in "
-        f"{time.perf_counter() - t0:.1f}s: {p.num_grams} grams, {p.spec}")
+        f"{host_fit_s:.1f}s: {p.num_grams} grams, {p.spec}")
 
     eval_docs, eval_labels = make_corpus(langs, 6000, seed=2)
     long_docs, long_labels = make_corpus(langs[:4], 4, mean_len=20000, seed=3)
@@ -1007,7 +1044,8 @@ def phase_main(torch, dev):
         if agree < gate:
             fail(f"{quant} agreement {agree} below the gate {gate}")
         quant_runners[quant] = qmodel.runner
-    return model, runner, quant_runners, texts, ids, eval_docs, launches
+    fit_case = FitCase(det, train_table, model, host_fit_s, texts, ids)
+    return model, runner, quant_runners, texts, ids, eval_docs, launches, fit_case
 
 
 def device_breakdown(torch, fn, wall_ms: float, top: int = 8) -> None:
@@ -1193,9 +1231,9 @@ def phase_config3(torch, dev):
     langs = language_names(50)
     train, train_labels = make_corpus(langs, 40 * len(langs), seed=1)
     t0 = time.perf_counter()
-    model = (LanguageDetector(langs, [1, 2, 3, 4, 5], 1000, device=str(dev))
-             .set_vocab_mode("exact")
-             .fit(Table({"lang": train_labels, "fulltext": train})))
+    det = LanguageDetector(langs, [1, 2, 3, 4, 5], 1000, device=str(dev)).set_vocab_mode("exact")
+    train_table = Table({"lang": train_labels, "fulltext": train})
+    model = det.fit(train_table)
     p = model.profile
     fit_s = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -1260,7 +1298,7 @@ def phase_config3(torch, dev):
         f"largest batch B={B} x S={pad_to}: rows plane {B * K * W * 4 / mb:.1f} MB, "
         f"row histogram {B * h.rhi * 256 * 4 / mb:.1f} MB, bigram histogram "
         f"{B * 65536 * 4 / mb:.1f} MB")
-    return model, runner, eval_docs, launches
+    return model, runner, eval_docs, launches, FitCase(det, train_table, model, fit_s, texts, ids)
 
 
 def phase_kernel5(torch, dev):
@@ -1735,6 +1773,306 @@ def phase_segment3(torch, dev, model3) -> None:
         fail(f"config-3 segmentation span F1 {f1:.4f} below the gate {SPAN_F1_GATE}")
 
 
+# --------------------------------------------------- device fit, persistence --
+@contextlib.contextmanager
+def phase_clock(name: str):
+    """Print the phase's seconds on the host clock when it ends."""
+    t0 = time.perf_counter()
+    yield
+    say(name, f"phase took {time.perf_counter() - t0:.1f}s")
+
+
+@contextlib.contextmanager
+def walls_of(torch, module, names, walls: dict):
+    """Wrap ``module.<name>`` for each name so its calls add their host-clock
+    seconds (card synchronized at both ends) to ``walls[name]``."""
+    def timed(name, fn):
+        def call(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                torch.cuda.synchronize()
+                walls[name] = walls.get(name, 0.0) + time.perf_counter() - t0
+        return call
+
+    with contextlib.ExitStack() as stack:
+        for name in names:
+            stack.enter_context(swapped(module, name, timed(name, getattr(module, name))))
+        yield
+
+
+def device_fit(torch, what: str, case: FitCase, kernels, smi_line: str):
+    """``fitBackend='device'`` on the card for ``case``'s estimator and table:
+    the profile must equal the host fit's bit for bit; then the fitted model
+    transforms ``case.texts`` through ``kernels``, labels identical to the
+    host-fitted model's."""
+    from spark_languagedetector_tpu_torch import Table
+    from spark_languagedetector_tpu_torch.ops import fit as fit_ops
+    from spark_languagedetector_tpu_torch.ops import fit_tpu as FT
+
+    det = case.det.copy({"fitBackend": "device"})
+    runs = []
+    for _ in range(2):  # the first call in the process, then a warm one
+        walls: dict[str, float] = {}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with walls_of(torch, FT, ("accumulate_counts", "finalize_counts"), walls), \
+                walls_of(torch, fit_ops, ("extract_gram_counts",), walls):
+            t0 = time.perf_counter()
+            model = det.fit(case.table)
+            torch.cuda.synchronize()
+            walls["fit"] = time.perf_counter() - t0
+        runs.append(walls)
+        p, h = model.profile, case.model.profile
+        if not (p.spec == h.spec and np.array_equal(p.ids, h.ids)
+                and np.array_equal(p.weights, h.weights)):
+            fail(f"{what}: the device fit's profile differs from the host fit's "
+                 f"({len(p.ids)} vs {len(h.ids)} grams)")
+    peak = torch.cuda.max_memory_allocated()
+    # The host fit once more, warm like the device fit's second call.
+    t0 = time.perf_counter()
+    case.det.fit(case.table)
+    host_warm_s = time.perf_counter() - t0
+    spec = p.spec
+    if spec.mode == "exact" and max(spec.gram_lengths) > 3:
+        from spark_languagedetector_tpu_torch.ops.vocab import VocabSpec
+
+        spec = VocabSpec("exact", tuple(n for n in spec.gram_lengths if n <= 3))
+    V, L = spec.id_space_size, len(p.languages)
+    blocked = V * L > FT.TOPK_SORT_BUDGET_ELEMS
+    def split(w):
+        host_half = (f", host long-gram count {w['extract_gram_counts']:.3f}s"
+                     if "extract_gram_counts" in w else "")
+        return (f"{w['fit']:.3f}s (count {w['accumulate_counts']:.3f}s, finalize "
+                f"{w['finalize_counts']:.3f}s {'blocked' if blocked else 'naive'}"
+                f"{host_half})")
+
+    say(what, f"device fit of {case.table.num_rows} docs on the card: first call "
+        f"{split(runs[0])}, warm {split(runs[1])}; host fit first call "
+        f"{case.host_fit_s:.2f}s, warm {host_warm_s:.2f}s; "
+        f"count table {V} x {L} int32 = {V * L * 4 / 1e9:.3f} GB; peak device memory "
+        f"{peak / 1e9:.2f} GB (warm fit); card {smi_line}")
+    say(what, f"profile bit-identical to the host fit, both fits: {len(p.ids)} grams, "
+        "ids and float64 weights")
+    reset_launches()
+    t0 = time.perf_counter()
+    pred = model.transform(Table({"fulltext": case.texts})).column("lang").tolist()
+    torch.cuda.synchronize()
+    launches = read_launches()
+    if any(launches[k] <= 0 for k in kernels):
+        fail(f"{what}: the device-fitted model's transform launched {launches}, "
+             f"expected {kernels}")
+    idx = {l: i for i, l in enumerate(p.languages)}
+    if not np.array_equal(np.asarray([idx[l] for l in pred]), case.ids):
+        fail(f"{what}: the device-fitted model's labels differ from the host-fitted model's")
+    say(what, f"transform {len(case.texts)} docs: {time.perf_counter() - t0:.2f}s, launches "
+        f"{launches}; labels identical to the host-fitted model's")
+    return model
+
+
+def plateau_topk(torch, dev) -> None:
+    """A parity count table whose tie plateaus cross the finalize's block
+    boundaries (three blocks of 2^21 rows, the last sliding back): the
+    card's ``top_k_rows``, ``top_k_rows_blocked`` and
+    ``finalize_topk_blocked`` must give numpy's (value desc, id asc) top-k."""
+    from spark_languagedetector_tpu_torch.ops import fit_tpu as FT
+
+    rng = np.random.default_rng(31)
+    block, L, k = FT.TOPK_BLOCK, 6, 1000
+    V = 2 * block + 12345
+    counts = np.zeros((V, L), np.int32)
+    for l in range(L):
+        # 200 grams only this language saw (the top weight), a plateau of
+        # about 1,500 shared with the next language around a block boundary
+        # (about 350 below it), and sparse noise seen by 3-6 languages.
+        counts[rng.choice(V, 200, replace=False), l] = 1
+        b = block * (1 + l % 2)
+        plateau = np.arange(b - 350, b + 1150)
+        counts[plateau, l] += 2
+        counts[plateau, (l + 1) % L] += 1
+    noise = rng.choice(V, 20000, replace=False)
+    counts[noise] += (rng.random((len(noise), L)) < 0.7).astype(np.int32)
+    present = counts > 0
+    n = present.sum(axis=1, keepdims=True)
+    occurred = n[:, 0] > 0
+    w = np.where(present, np.log1p(1.0 / np.maximum(n, 1)), 0.0)
+    w[~occurred] = -np.inf
+    ids = np.arange(V)
+    want = [np.lexsort((ids, -w[:, l]))[:k] for l in range(L)]
+    crossing = sum(int((r < block).any() and (r >= block).any()) for r in want)
+    t = torch.from_numpy(counts).to(dev)
+    masked = FT.masked_candidate_weights(t, weight_mode="parity")
+    got = {
+        "top_k_rows": FT.top_k_rows(masked, k=k),
+        "top_k_rows_blocked": FT.top_k_rows_blocked(masked, k=k, block=block),
+        "finalize_topk_blocked": FT.finalize_topk_blocked(t, weight_mode="parity", k=k),
+    }
+    for name, rows in got.items():
+        rows = rows.cpu().numpy()
+        for l in range(L):
+            order = sorted(rows[l].tolist(), key=lambda i: (-w[i, l], i))
+            if order != want[l].tolist():
+                fail(f"plateau table: {name} differs from numpy's (value desc, id asc) "
+                     f"top-{k} for language {l}")
+    say("fit3", f"plateau table {V} x {L} (block {block}, tail sliding back), k = {k}: "
+        f"{', '.join(got)} equal numpy's (value desc, id asc) order; {crossing}/{L} "
+        "languages' winners span a block boundary")
+
+
+def fit_at_scale(torch, case: FitCase, factor: int, smi_line: str) -> None:
+    """Config 5's device and host fits, both warm, on a training corpus
+    ``factor`` times phase 4's (fresh documents, seed 4), where the count
+    pass, the part that grows with training data, carries weight beside
+    the finalize; the profiles must be bit-identical."""
+    from spark_languagedetector_tpu_torch import Table
+    from spark_languagedetector_tpu_torch.ops import fit_tpu as FT
+
+    langs = list(case.model.profile.languages)
+    t0 = time.perf_counter()
+    train, labels = make_corpus(langs, factor * case.table.num_rows, seed=4)
+    table = Table({"lang": labels, "fulltext": train})
+    make_s = time.perf_counter() - t0
+    walls: dict[str, float] = {}
+    with walls_of(torch, FT, ("accumulate_counts", "finalize_counts"), walls):
+        t0 = time.perf_counter()
+        dev_model = case.det.copy({"fitBackend": "device"}).fit(table)
+        torch.cuda.synchronize()
+        dev_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host_model = case.det.fit(table)
+    host_s = time.perf_counter() - t0
+    p, h = dev_model.profile, host_model.profile
+    if not (np.array_equal(p.ids, h.ids) and np.array_equal(p.weights, h.weights)):
+        fail(f"fit5 x{factor}: the device fit's profile differs from the host fit's")
+    say("fit5", f"x{factor} corpus: {len(train)} docs ({sum(map(len, train)) / 1e6:.2f} MB, "
+        f"made in {make_s:.1f}s): device fit {dev_s:.3f}s (count "
+        f"{walls['accumulate_counts']:.3f}s, finalize {walls['finalize_counts']:.3f}s), "
+        f"host fit {host_s:.2f}s, both warm; profiles bit-identical ({len(p.ids)} grams); "
+        f"card {smi_line}")
+
+
+def phase_fit5(torch, dev, case: FitCase, smi_line: str):
+    """Config 5 through ``fitBackend='device'``: the naive finalize over the
+    0.74 GB count table; then both fits on an eight-fold corpus."""
+    model = device_fit(torch, "fit5", case, ("fused_detect",), smi_line)
+    fit_at_scale(torch, case, 8, smi_line)
+    return model
+
+
+def phase_fit3(torch, dev, case: FitCase, smi_line: str) -> None:
+    """Config 3 through ``fitBackend='device'``: the split fit, lengths 1..3
+    on the card (the blocked finalize over a 3.37 GB table), 4..5 on the
+    host; then the plateau table."""
+    device_fit(torch, "fit3", case, ("row_hist", "bigram_hist"), smi_line)
+    plateau_topk(torch, dev)
+
+
+def reload_check(torch, what: str, before, after, docs, table_texts, kernel: str) -> None:
+    """``after`` (a reloaded model) must stay on the card and give ``before``'s
+    f32 scores bit for bit and its labels through ``transform``."""
+    from spark_languagedetector_tpu_torch import Table
+
+    if after.runner.device.type != "cuda":
+        fail(f"persist {what}: the reloaded model runs on {after.runner.device}")
+    if not np.array_equal(after.runner.score(docs), before.runner.score(docs)):
+        fail(f"persist {what}: reloaded f32 scores differ from the saved model's")
+    reset_launches()
+    labels = after.transform(Table({"fulltext": table_texts})).column("lang").tolist()
+    launches = read_launches()
+    if launches[kernel] <= 0:
+        fail(f"persist {what}: the reloaded model's transform never launched {kernel}")
+    if labels != before.transform(Table({"fulltext": table_texts})).column("lang").tolist():
+        fail(f"persist {what}: reloaded labels differ from the saved model's")
+
+
+def phase_persist(torch, dev, model5, texts5, model3, texts3) -> None:
+    """Save and load on the card: the config-5 model (native float64, and
+    int8-quantized), the calibrated segment model of phase 9, and the
+    config-3 model in the reference (Spark) layout. Every reload stays on
+    the card and gives the saved model's scores and labels."""
+    try:
+        import pyarrow  # noqa: F401
+    except ImportError as e:
+        say("persist", f"not run: pyarrow cannot be imported on this machine ({e}); "
+            "persistence is held by the CPU tests only")
+        return
+    import shutil
+
+    from spark_languagedetector_tpu_torch import LanguageDetectorModel
+    from spark_languagedetector_tpu_torch.api.runner import SEGMENT_CELL
+
+    out = ROOT / "build" / "persist_smoke"
+    shutil.rmtree(out, ignore_errors=True)
+    sample5, sample3 = texts5[:2000], texts3[:2000]
+    docs5, docs3 = [t.encode() for t in sample5], [t.encode() for t in sample3]
+    try:
+        # 1. Native float64, uncalibrated, saved from a CPU session: the
+        # device is the session's, so the reload (no device named) runs on
+        # the card.
+        plain = model5.copy()
+        plain.calibration = None
+        t0 = time.perf_counter()
+        plain.copy({"device": "cpu"}).write().save(str(out / "c5"))
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loaded = LanguageDetectorModel.load(str(out / "c5"))
+        load_s = time.perf_counter() - t0
+        if loaded.calibration is not None:
+            fail("persist: an uncalibrated model came back calibrated")
+        reload_check(torch, "config 5", plain, loaded, docs5, sample5, "fused_detect")
+        size = sum(f.stat().st_size for f in (out / "c5").rglob("*") if f.is_file())
+        say("persist", f"config 5 native f64 ({model5.profile.num_grams} rows, "
+            f"{size / 1e6:.1f} MB on disk): save {save_s:.2f}s, load {load_s:.2f}s; "
+            f"scores of {len(docs5)} docs and labels identical on the card")
+        # 2. int8: the reloaded q * scale requantizes to the saved integers.
+        model5.write().quantized("int8").save(str(out / "c5_int8"))
+        q_before = model5.copy({"quantization": "int8"})
+        q_after = LanguageDetectorModel.load(str(out / "c5_int8")).copy({"quantization": "int8"})
+        reload_check(torch, "config 5 int8", q_before, q_after, docs5, sample5, "fused_detect")
+        size = sum(f.stat().st_size for f in (out / "c5_int8").rglob("*") if f.is_file())
+        say("persist", f"config 5 int8 ({size / 1e6:.1f} MB on disk): fused int8 scores and "
+            "labels identical to the pre-save int8 model's")
+        # 3. The calibrated segment model.
+        seg_before = model5.copy({"resultMode": "segment"})
+        seg_before.calibration = model5.calibration
+        seg_before.write().save(str(out / "c5_seg"))
+        seg_after = LanguageDetectorModel.load(str(out / "c5_seg"))
+        cal = seg_after.calibration
+        if cal is None or not cal.calibrated or cal.to_dict() != model5.calibration.to_dict():
+            fail("persist: the calibrated model lost or changed its calibration")
+        cs = [t.encode() for t in make_codeswitch_corpus(list(model5.profile.languages), 60,
+                                                         seed=41)[0]]
+        reset_launches()
+        cells_after, _ = seg_after.runner.segment_cells(cs, cell=SEGMENT_CELL)
+        if read_launches()["fused_segment"] <= 0:
+            fail("persist: the reloaded segment model never launched fused_segment")
+        cells_before, _ = seg_before.runner.segment_cells(cs, cell=SEGMENT_CELL)
+        if not all(np.array_equal(a, b) for a, b in zip(cells_after, cells_before)):
+            fail("persist: the reloaded segment model's per-cell scores differ")
+        seg_texts = [d.decode() for d in cs]
+        from spark_languagedetector_tpu_torch import Table
+
+        res_after = seg_after.transform(Table({"fulltext": seg_texts})).column("lang").tolist()
+        res_before = seg_before.transform(Table({"fulltext": seg_texts})).column("lang").tolist()
+        if res_after != res_before or not all(json.loads(r)["calibrated"] for r in res_after):
+            fail("persist: the reloaded segment model's results differ or lost calibrated: true")
+        say("persist", f"calibrated segment model: calibration identical, per-cell scores of "
+            f"{len(cs)} code-switched docs bit-identical, segment JSON identical "
+            "(calibrated: true)")
+        # 4. Config 3 in the reference layout.
+        model3.write().reference_layout().save(str(out / "c3_ref"))
+        meta = json.loads((out / "c3_ref" / "metadata" / "part-00000").read_text())
+        ref3 = LanguageDetectorModel.load(str(out / "c3_ref"), device=str(dev))
+        reload_check(torch, "config 3 reference layout", model3, ref3, docs3, sample3,
+                     "row_hist")
+        say("persist", f"config 3 reference layout ({meta['class']}): scores of "
+            f"{len(docs3)} docs and labels identical on the card (hybrid)")
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--quick", action="store_true",
@@ -1783,19 +2121,32 @@ def main() -> None:
     if args.quick:
         say("done", f"quick run ok in {time.perf_counter() - t_start:.1f}s")
         return
-    model, runner, quant_runners, main_docs, main_ids, eval_docs, launches = phase_main(
-        torch, dev)
-    c5_err, times, c5_inp = phase_times(torch, dev, model, runner, quant_runners, eval_docs,
-                                        baselines)
-    model3, runner3, eval3, launches3 = phase_config3(torch, dev)
-    runner10, launches10 = phase_kernel5(torch, dev)
-    hist_entries = phase_times_hist(torch, dev, model3, runner3, runner10, eval3,
-                                    launches3, launches10, hist_errs, baselines)
-    seg_launches, seg_path_err = phase_segment(torch, dev, model, main_ids, main_docs)
-    segment_entry = phase_times_segment(torch, dev, runner, quant_runners, c5_inp,
-                                        seg_launches, max(segment_err, seg_path_err),
-                                        baselines)
-    phase_segment3(torch, dev, model3)
+    with phase_clock("main"):
+        (model, runner, quant_runners, main_docs, main_ids, eval_docs, launches,
+         fit5_case) = phase_main(torch, dev)
+    with phase_clock("times"):
+        c5_err, times, c5_inp = phase_times(torch, dev, model, runner, quant_runners,
+                                            eval_docs, baselines)
+    with phase_clock("config3"):
+        model3, runner3, eval3, launches3, fit3_case = phase_config3(torch, dev)
+    with phase_clock("kernel5"):
+        runner10, launches10 = phase_kernel5(torch, dev)
+    with phase_clock("times"):
+        hist_entries = phase_times_hist(torch, dev, model3, runner3, runner10, eval3,
+                                        launches3, launches10, hist_errs, baselines)
+    with phase_clock("segment"):
+        seg_launches, seg_path_err = phase_segment(torch, dev, model, main_ids, main_docs)
+        segment_entry = phase_times_segment(torch, dev, runner, quant_runners, c5_inp,
+                                            seg_launches, max(segment_err, seg_path_err),
+                                            baselines)
+    with phase_clock("segment3"):
+        phase_segment3(torch, dev, model3)
+    with phase_clock("fit5"):
+        phase_fit5(torch, dev, fit5_case, smi_line)
+    with phase_clock("fit3"):
+        phase_fit3(torch, dev, fit3_case, smi_line)
+    with phase_clock("persist"):
+        phase_persist(torch, dev, model, main_docs, model3, fit3_case.texts)
     bad = [k for k in ("jax", "jaxlib", "spark_languagedetector_tpu") if k in sys.modules]
     if bad:
         fail(f"JAX modules were imported: {bad}")

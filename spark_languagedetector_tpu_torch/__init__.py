@@ -8,16 +8,34 @@ imports torch and numpy only.
 Public API::
 
     from spark_languagedetector_tpu_torch import (
-        LanguageDetector, LanguageDetectorModel, Table,
+        LanguageDetector, LanguageDetectorModel, Pipeline, PipelineModel,
+        LowerCasePreprocessor, SpecialCharPreprocessor, Language, Table,
     )
+
+Models and pipelines save and load in the JAX package's directory layout,
+so either package loads what the other saved.
 
 Entry points run on the CUDA card unless given ``device="cpu"``, where the
 kernels' plain PyTorch versions run; with no device and no card they raise.
 """
 
+from .api.pipeline import Pipeline, PipelineModel
 from .api.table import Schema, Table
 from .models.estimator import LanguageDetector, LanguageDetectorModel
+from .models.language import ISO_LANGUAGE_CODES, Language
+from .models.preprocessing import LowerCasePreprocessor, SpecialCharPreprocessor
 
 __version__ = "0.1.0"
 
-__all__ = ["LanguageDetector", "LanguageDetectorModel", "Schema", "Table"]
+__all__ = [
+    "ISO_LANGUAGE_CODES",
+    "Language",
+    "LanguageDetector",
+    "LanguageDetectorModel",
+    "LowerCasePreprocessor",
+    "Pipeline",
+    "PipelineModel",
+    "Schema",
+    "SpecialCharPreprocessor",
+    "Table",
+]

@@ -4,7 +4,7 @@ Port of ``spark_languagedetector_tpu.api.params``: Spark ML's
 ``Param``/``Params`` framework as the reference uses it, except that *every*
 hyper-parameter is a ``Param`` (the reference keeps ``supportedLanguages``,
 ``gramLengths`` and ``languageProfileSize`` as constructor arguments outside
-``copy``), so ``copy()`` covers all of them uniformly.
+``copy``), so ``copy()`` and persistence cover all of them uniformly.
 """
 
 from __future__ import annotations
@@ -18,17 +18,24 @@ T = TypeVar("T")
 
 
 class Param(Generic[T]):
-    """A named, documented parameter slot declared on a ``Params`` class."""
+    """A named, documented parameter slot declared on a ``Params`` class.
+
+    ``persisted=False`` marks a property of the session rather than of the
+    saved stage (the torch ``device``): persistence neither writes it nor
+    reads it back, so a loaded stage takes it from its caller."""
 
     def __init__(
         self,
         name: str,
         doc: str,
         validator: Callable[[Any], bool] | None = None,
+        *,
+        persisted: bool = True,
     ):
         self.name = name
         self.doc = doc
         self.validator = validator
+        self.persisted = persisted
 
     def __repr__(self) -> str:
         return f"Param({self.name})"
@@ -123,6 +130,32 @@ class Params(Identifiable):
         for name, value in (extra or {}).items():
             new.set(name, value)
         return new
+
+    # -- persistence support ---------------------------------------------------
+    def _persisted_names(self) -> set[str]:
+        return {name for name, p in type(self).params().items() if p.persisted}
+
+    def param_metadata(self) -> dict[str, Any]:
+        """JSON-serializable map of explicitly set params (+ defaults map):
+        the ``paramMap`` that model and pipeline persistence write. Params
+        declared ``persisted=False`` are left out."""
+        keep = self._persisted_names()
+        return {
+            "params": {k: v for k, v in self._param_values.items() if k in keep},
+            "defaultParams": {k: v for k, v in self._param_defaults.items() if k in keep},
+        }
+
+    def _set_params_from_metadata(self, metadata: dict[str, Any]) -> None:
+        """Apply a persisted ``paramMap``. Names this class does not declare
+        (the JAX package's ``backend``), and params declared
+        ``persisted=False``, are skipped."""
+        keep = self._persisted_names()
+        for name, value in metadata.get("defaultParams", {}).items():
+            if name in keep:
+                self._param_defaults[name] = value
+        for name, value in metadata.get("params", {}).items():
+            if name in keep:
+                self.set(name, value)
 
 
 # --- shared column traits (Spark ML's HasInputCol/HasLabelCol/HasOutputCol) ---

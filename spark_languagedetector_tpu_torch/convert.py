@@ -1,5 +1,10 @@
 """Carry a fitted profile across from the JAX package.
 
+A model the JAX package saved (``model.write().save(path)``) needs none of
+this: ``LanguageDetectorModel.load(path)`` reads its directory directly,
+calibration and quantized rows included. The functions below carry a model
+that lives in memory.
+
 The JAX package's ``GramProfile`` is plain host state — a vocab spec, the
 language order, sorted gram ids and a weight matrix — so it crosses as numpy
 arrays and needs no import of that package here::
@@ -67,7 +72,9 @@ def model_from_arrays(
 ) -> LanguageDetectorModel:
     """:func:`profile_from_arrays` wrapped in a :class:`LanguageDetectorModel`
     that runs on ``device`` (None ⇒ the CUDA card). ``calibration`` is the
-    ``Calibration.to_dict()`` state of a calibrated model, or None."""
+    ``Calibration.to_dict()`` state of a calibrated model, or None. (A
+    JAX-saved model directory loads with ``LanguageDetectorModel.load``
+    instead.)"""
     model = LanguageDetectorModel(
         profile_from_arrays(
             mode, gram_lengths, hash_bits, hash_scheme, languages, ids, weights

@@ -3,8 +3,10 @@
 Port of ``spark_languagedetector_tpu.models.estimator``: the reference's
 Spark ML pair with the same Params, defaults and validation messages
 (``inputCol="fulltext"``, ``labelCol``/``outputCol="lang"``). Fit builds a
-columnar :class:`GramProfile` with the host numpy fit (exact gram lengths up
-to 5, or hashed); transform ships micro-batches through
+columnar :class:`GramProfile` with the host numpy fit or, with
+``fitBackend="device"``, the device fit of :mod:`..ops.fit_tpu` (torch ops
+on the model's device; the split fit for exact n = 4..5), both bit for bit
+the same profile; transform ships micro-batches through
 :class:`~..api.runner.BatchRunner`, whose CUDA kernels label documents on the
 card (the fused kernel for dense and LUT profiles; the bigram and
 row-histogram kernels of the hybrid strategy for exact n = 4..5 profiles).
@@ -19,9 +21,10 @@ and stamps ``calibrated: false`` on every result.
 
 Where the JAX package had a ``backend`` switch, the port has ``device``:
 None means the CUDA card (and raises when there is none); ``"cpu"`` runs
-the plain PyTorch versions. ``fitBackend="device"`` and model persistence
-(the calibration's included) belong to later slices of the port and raise
-NotImplementedError.
+the plain PyTorch versions. ``model.write().save(path)`` and
+``LanguageDetectorModel.load`` use the JAX package's directory layout
+(:mod:`..persist.io`), so a model saved by either package loads in the
+other, its calibration included.
 """
 
 from __future__ import annotations
@@ -63,12 +66,6 @@ def _valid_device(v) -> bool:
     return v is None or isinstance(v, str)
 
 
-def _later_slice(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not in the PyTorch port yet; a later slice brings it over"
-    )
-
-
 class _ResultModeParams:
     """Segmentation result-type params, shared by estimator and model."""
 
@@ -99,8 +96,11 @@ class _DeviceParam:
         "device",
         "torch device transform runs on: None ⇒ the CUDA card (an error "
         "when none is visible), 'cpu' ⇒ the plain PyTorch versions, or "
-        "any torch device string such as 'cuda:1'",
+        "any torch device string such as 'cuda:1'. A property of the "
+        "session, not of the stage: persistence does not save it, so a "
+        "loaded model runs on the card unless its loader names a device",
         _valid_device,
+        persisted=False,
     )
 
 
@@ -117,7 +117,7 @@ class _DetectorParams(HasInputCol, HasLabelCol, _ResultModeParams, _DeviceParam)
     save_grams_to = Param(
         "saveGrams",
         "optional path: persist the fitted gram-probability dataset (the "
-        "reference's saveGramsToHDFS; not in the PyTorch port yet)",
+        "reference's saveGramsToHDFS)",
     )
     vocab_mode = Param(
         "vocabMode",
@@ -147,13 +147,17 @@ class _DetectorParams(HasInputCol, HasLabelCol, _ResultModeParams, _DeviceParam)
     )
     fit_backend = Param(
         "fitBackend",
-        "'cpu' (host fit — the reference keeps fit on CPU) or 'device' "
-        "(not in the PyTorch port yet)",
+        "'cpu' (host fit — the reference keeps fit on CPU) or 'device': "
+        "streaming dense-count fit on the model's device (micro-batched "
+        "scatter-add + device weighting/top-k). Exact gram lengths 4..5 "
+        "are counted on the host; an exact vocabulary with no length <= 3 "
+        "therefore fits wholly on the host",
         lambda v: v in ("cpu", "device"),
     )
     fit_batch_rows = Param(
         "fitBatchRows",
-        "device-fit micro-batch rows per count dispatch; ignored by "
+        "device-fit micro-batch rows per count dispatch; None ⇒ rows adapt "
+        "per length bucket under an 8MB padded-batch budget. Ignored by "
         "fitBackend='cpu'",
         lambda v: v is None or _positive_int(v),
     )
@@ -196,6 +200,21 @@ class LanguageDetector(_DetectorParams):
         self.set("languageProfileSize", int(language_profile_size))
         if device is not None:
             self.set("device", device)
+
+    @classmethod
+    def _from_param_metadata(cls, uid: str, metadata: dict) -> "LanguageDetector":
+        """Rebuild an estimator from persisted params (pipeline persistence:
+        the constructor arguments are Params, so they come back out of the
+        metadata)."""
+        flat = {**metadata.get("defaultParams", {}), **metadata.get("params", {})}
+        det = cls(
+            flat["supportedLanguages"],
+            flat["gramLengths"],
+            flat["languageProfileSize"],
+            uid=uid,
+        )
+        det._set_params_from_metadata(metadata)
+        return det
 
     # -- convenience setters (Spark ML style) ---------------------------------
     def set_save_grams_to(self, path: str | None):
@@ -253,13 +272,10 @@ class LanguageDetector(_DetectorParams):
         )
 
     def fit(self, dataset: Table) -> "LanguageDetectorModel":
-        # The model runs where the estimator says; resolving here makes a
-        # machine without a card fail before the fit, not after it.
-        resolve_device(self.get("device"))
-        if self.get("fitBackend") == "device":
-            raise _later_slice("fitBackend='device'")
-        if self.get("saveGrams") is not None:
-            raise _later_slice("saveGrams (gram dump persistence)")
+        # The model (and a device fit) runs where the estimator says;
+        # resolving here makes a machine without a card fail before the
+        # fit, not after it.
+        device = resolve_device(self.get("device"))
         label_col, input_col = self.get_label_col(), self.get_input_col()
         supported = list(self.get("supportedLanguages"))
         labels = dataset.column(label_col)
@@ -288,18 +304,33 @@ class LanguageDetector(_DetectorParams):
         spec = self._vocab_spec()
         docs = texts_to_bytes(texts.tolist(), self.get("trainEncoding"))
         lang_idx = np.asarray([lang_to_idx[l] for l in label_list])
-        ids, weights = fit_ops.fit_profile_numpy(
-            docs,
-            lang_idx,
-            len(supported),
-            spec,
-            self.get("languageProfileSize"),
-            self.get("weightMode"),
-        )
+        ids, weights = self._fit_profile(spec, docs, lang_idx, len(supported), device)
         profile = GramProfile(
             spec=spec, languages=tuple(supported), ids=ids, weights=weights
         )
+        save_path = self.get("saveGrams")
+        if save_path is not None:
+            from ..persist.io import save_gram_dump
+
+            save_gram_dump(save_path, profile)
         return self._build_model(profile)
+
+    def _fit_profile(self, spec, docs, lang_idx, num_langs: int, device):
+        """(ids, weights) through the configured fit backend; the device
+        fit runs on ``device``. Exact gram lengths 4..5 have no dense
+        device table, so they take the split fit (lengths <= 3 counted on
+        the device, the long lengths by the exact host path)."""
+        args = (
+            docs, lang_idx, num_langs, spec,
+            self.get("languageProfileSize"), self.get("weightMode"),
+        )
+        if self.get("fitBackend") != "device":
+            return fit_ops.fit_profile_numpy(*args)
+        from ..ops.fit_tpu import fit_profile_device, fit_profile_device_split
+
+        split = spec.mode == EXACT and max(spec.gram_lengths) > MAX_DEVICE_ID_GRAM_LEN
+        fit = fit_profile_device_split if split else fit_profile_device
+        return fit(*args, batch_rows=self.get("fitBatchRows"), device=device)
 
     def _build_model(self, profile: GramProfile) -> "LanguageDetectorModel":
         """Profile → configured model (the estimator stamps its params)."""
@@ -415,6 +446,10 @@ class LanguageDetectorModel(HasInputCol, HasOutputCol, _ResultModeParams, _Devic
     @property
     def gram_lenghts(self) -> tuple[int, ...]:
         return self.gram_lengths
+
+    @property
+    def gram_probabilities(self) -> dict[bytes, np.ndarray]:
+        return self.profile.gram_probabilities
 
     # -- transform -------------------------------------------------------------
     def transform_schema(self, schema: Schema) -> Schema:
@@ -544,3 +579,71 @@ class LanguageDetectorModel(HasInputCol, HasOutputCol, _ResultModeParams, _Devic
             len(langs),
         )
         return self
+
+    # -- persistence -----------------------------------------------------------
+    def write(self) -> "_ModelWriter":
+        return _ModelWriter(self)
+
+    def save(self, path: str) -> None:
+        """Overwrite semantics, like the reference's writer
+        (SaveMode.Overwrite). ``write().save(path)`` refuses an existing
+        path."""
+        self.write().overwrite().save(path)
+
+    @staticmethod
+    def load(path: str, device: str | None = None) -> "LanguageDetectorModel":
+        """Load a model directory saved by this package or the JAX package
+        (native or reference layout) to run on ``device`` (None ⇒ the CUDA
+        card). No saved model names a device: that is the caller's."""
+        from ..persist.io import load_model
+
+        profile, uid, params, calibration = load_model(path)
+        model = LanguageDetectorModel(profile, uid=uid)
+        model._set_params_from_metadata(params)
+        if device is not None:
+            model.set("device", device)
+        if calibration is not None:
+            model.calibration = Calibration.from_dict(calibration)
+        return model
+
+
+class _ModelWriter:
+    """``model.write().save(path)``: the MLWritable shape."""
+
+    def __init__(self, model: LanguageDetectorModel):
+        self._model = model
+        self._overwrite = False  # destructive only after .overwrite()
+        self._layout = "native"
+        self._quantize: str | None = None
+
+    def overwrite(self) -> "_ModelWriter":
+        self._overwrite = True
+        return self
+
+    def quantized(self, dtype: str = "int8") -> "_ModelWriter":
+        """Store the weight table quantized ('int8' | 'int16'): integer
+        parquet rows + per-language f32 scales in the metadata (native
+        layout only; see :func:`..persist.io.save_model`)."""
+        self._quantize = dtype
+        return self
+
+    def reference_layout(self) -> "_ModelWriter":
+        """Write the Scala implementation's on-disk shape (tuple-column
+        probabilities parquet, JVM class name). Exact vocabs only."""
+        self._layout = "reference"
+        return self
+
+    def save(self, path: str) -> None:
+        from ..persist.io import save_model
+
+        calibration = self._model.calibration
+        save_model(
+            path,
+            self._model.profile,
+            self._model.uid,
+            self._model.param_metadata(),
+            overwrite=self._overwrite,
+            layout=self._layout,
+            quantize=self._quantize,
+            calibration=None if calibration is None else calibration.to_dict(),
+        )

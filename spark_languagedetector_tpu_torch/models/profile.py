@@ -238,6 +238,17 @@ class GramProfile:
         )
         return w, self.ids
 
+    @property
+    def gram_probabilities(self) -> dict[bytes, np.ndarray]:
+        """``Map[gram bytes → weight vector]`` (the reference's model
+        state); exact mode only."""
+        if self.spec.mode != EXACT:
+            raise ValueError("hashed profiles store bucket weights, not gram byte maps")
+        return {
+            self.spec.id_to_gram(int(i)): self.weights[r]
+            for r, i in enumerate(self.ids)
+        }
+
     @staticmethod
     def from_gram_map(
         gram_map: dict[bytes, "np.ndarray | list[float]"],

@@ -59,11 +59,14 @@ def pad_batch(
     byte_docs: Sequence[bytes],
     pad_to: int | None = None,
     length_buckets: Sequence[int] | None = None,
+    out: np.ndarray | None = None,
 ) -> tuple[np.ndarray, np.ndarray]:
     """Pack variable-length byte strings into (uint8 [B, S], int32 lengths [B]).
 
     Documents longer than the padded width are truncated (callers that need
-    unbounded documents chunk first).
+    unbounded documents chunk first). ``out``, a uint8 [B, pad_to] array
+    (a view of pinned host memory, say), receives the batch in place of a
+    new one.
     """
     lengths = np.fromiter(
         (len(d) for d in byte_docs), dtype=np.int32, count=len(byte_docs)
@@ -71,7 +74,11 @@ def pad_batch(
     max_len = max(int(lengths.max()) if len(byte_docs) else 1, 1)
     if pad_to is None:
         pad_to = bucket_length(max_len, length_buckets or DEFAULT_LENGTH_BUCKETS)
-    batch = np.zeros((len(byte_docs), pad_to), dtype=np.uint8)
+    if out is None:
+        batch = np.zeros((len(byte_docs), pad_to), dtype=np.uint8)
+    else:
+        batch = out
+        batch.fill(0)
     for i, doc in enumerate(byte_docs):
         n = min(len(doc), pad_to)
         if n:

@@ -48,14 +48,27 @@ def extract_gram_counts(
     num_langs: int,
     spec: VocabSpec,
     batch_size: int = _FIT_BATCH,
+    gram_lengths_subset: tuple[int, ...] | None = None,
+    min_partial_gram_len: int = 1,
 ) -> GramCounts:
     """Count every window occurrence per (gram id, language), partial windows
     of short documents included (Scala ``sliding``). Each batch's window ids
     reduce to (unique pair, count) at once and merge into the accumulator
     when the pending set is large, so memory stays O(batch + distinct pairs).
+
+    ``gram_lengths_subset`` counts only those window classes (ids stay in
+    the full spec's id space); ``min_partial_gram_len`` drops partial
+    windows whose gram (the whole short doc) is shorter than the bound. The
+    split device fit uses both to part the counts by resulting gram length
+    (``ops.fit_tpu.fit_profile_device_split``).
     """
     lang_indices = np.asarray(lang_indices, dtype=np.int64)
-    max_n = max(spec.gram_lengths)
+    lengths_to_count = (
+        tuple(gram_lengths_subset)
+        if gram_lengths_subset is not None
+        else spec.gram_lengths
+    )
+    max_n = max(lengths_to_count)
     acc_ids = np.zeros(0, np.int64)
     acc_counts = np.zeros(0, np.int64)
     pending: list[tuple[np.ndarray, np.ndarray]] = []
@@ -80,7 +93,7 @@ def extract_gram_counts(
         langs = lang_indices[start : start + batch_size]
         batch, lengths = pad_batch(docs, pad_to=max(max(len(d) for d in docs), 1))
         batch_chunks: list[np.ndarray] = []
-        for n in spec.gram_lengths:
+        for n in lengths_to_count:
             if batch.shape[1] < n:
                 continue  # no full windows of this class in the batch
             ids = window_ids_numpy(batch, n, spec)  # [B, W]
@@ -92,8 +105,8 @@ def extract_gram_counts(
         # falls short of, id in the doc's own length class.
         for i, doc in enumerate(docs):
             n_doc = len(doc)
-            if 1 <= n_doc < max_n:
-                reps = sum(1 for n in spec.gram_lengths if n > n_doc)
+            if min_partial_gram_len <= n_doc < max_n:
+                reps = sum(1 for n in lengths_to_count if n > n_doc)
                 if reps:
                     short_id = spec.gram_to_id(bytes(doc))
                     batch_chunks.append(

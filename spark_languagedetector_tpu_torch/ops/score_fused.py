@@ -380,6 +380,25 @@ def fused_plain(
     return scores
 
 
+def fused_abs_sum(
+    inp: FusedInputs, wq: torch.Tensor, scales: torch.Tensor, layout: FusedLayout
+) -> torch.Tensor:
+    """Σ|terms| per (document, language), float64 [B, L]: the plain
+    version's window walk over ``|wq[row]|`` times ``|scales|``.
+
+    An f32 sum of these terms in any order lies within a few units of
+    ``2^-24 · Σ|terms|`` of the exact sum, whatever the score itself is, so
+    f32 scores are held to ``atol + rtol·|ref| + 2^-23 · Σ|terms|``: a
+    bound that grows with the sum where a fixed ``atol`` cannot."""
+    acc = torch.zeros(
+        (inp.batch.shape[0], wq.shape[1]), dtype=torch.float64, device=wq.device
+    )
+    w_abs = wq.double().abs()
+    for r, m in window_rows(inp, layout):
+        acc += (w_abs[r] * m[..., None]).sum(dim=1)
+    return acc * scales.double().abs()
+
+
 # ------------------------------------------------- CUDA kernel -------------
 
 

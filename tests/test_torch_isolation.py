@@ -5,9 +5,12 @@
   hybrid path) and then finds neither ``jax`` nor
   ``spark_languagedetector_tpu`` in ``sys.modules``.
 * A second subprocess, in which ``jax`` and the JAX package cannot be
-  imported at all, calibrates a model and transforms in segment mode.
+  imported at all, calibrates a model and transforms in segment mode, fits
+  with ``fitBackend="device"``, saves and loads the model and a pipeline
+  (whose metadata names the JAX package's classes, as data) and transforms.
 * An AST scan finds no import of either anywhere in the port, ``segment/``
-  included, nor in ``chip_smoke.py``.
+  included, nor in ``chip_smoke.py``, and no ``importlib`` in the port's
+  pipeline loader, which looks stage classes up in a fixed table.
 * With no device given and no CUDA card, the entry points raise.
 """
 
@@ -85,6 +88,37 @@ def test_segment_mode_runs_with_jax_unimportable():
         assert first["spans"][0]["start"] == 0 and first["spans"][-1]["end"] == len(doc)
         assert json.loads(out[1])["spans"] == []
         assert seg.detect("der hund")["label"] == "de"
+
+        import tempfile
+        from spark_languagedetector_tpu_torch import (
+            LanguageDetectorModel, LowerCasePreprocessor, Pipeline, PipelineModel)
+        det = LanguageDetector(["en", "de"], [1, 2, 3, 4, 5], 50, device="cpu")
+        for vocab in ("hashed", "exact"):
+            dev_fit = det.copy({"fitBackend": "device", "vocabMode": vocab}).fit(table)
+            host_fit = det.copy({"vocabMode": vocab}).fit(table)
+            assert (dev_fit.profile.ids == host_fit.profile.ids).all()
+            assert (dev_fit.profile.weights == host_fit.profile.weights).all()
+        dev_fit.calibrate(table)
+        out_dir = tempfile.mkdtemp()
+        dev_fit.write().quantized("int16").save(out_dir + "/model")
+        back = LanguageDetectorModel.load(out_dir + "/model", device="cpu")
+        assert back.calibration.to_dict() == dev_fit.calibration.to_dict()
+        probe = Table({"fulltext": ["the dog barks", "der hund"]})
+        assert back.transform(probe).column("lang").tolist() == ["en", "de"]
+        lower = LowerCasePreprocessor().set_input_col("fulltext")
+        pipe = Pipeline([lower, det.copy({"fitBackend": "device"})])
+        pipe.save(out_dir + "/pipe")
+        pm = Pipeline.load(out_dir + "/pipe", device="cpu").fit(table)
+        pm.stages[-1].set("outputCol", "detected")
+        pm.save(out_dir + "/pm")
+        loaded = PipelineModel.load(out_dir + "/pm", device="cpu")
+        labeled = Table({"fulltext": ["THE DOG BARKS", "DER HUND"], "lang": ["en", "de"]})
+        assert loaded.transform(labeled).column("detected").tolist() == ["en", "de"]
+        meta = json.load(open(out_dir + "/pm/metadata/part-00000"))
+        assert meta["class"] == "spark_languagedetector_tpu.api.pipeline.PipelineModel"
+        bad = sorted(m for m, mod in sys.modules.items() if mod is not None
+                     and m.split(".")[0] in ("jax", "jaxlib", "spark_languagedetector_tpu"))
+        assert not bad, bad
         try:
             import jax
         except ImportError:
@@ -118,9 +152,33 @@ def test_no_module_of_the_port_imports_jax():
     scanned = {p.name for p in PORT_DIR.rglob("*.py")}
     assert len(scanned) >= 15
     assert {"cuckoo.py", "bucket.py", "score_hist.py", "score_pallas.py"} <= scanned
+    assert {"fit_tpu.py", "fit_pipeline.py", "io.py", "pipeline.py", "preprocessing.py",
+            "language.py", "logging.py"} <= scanned
     assert {"api.py", "spans.py", "topk.py", "calibrate.py"} <= {
         p.name for p in (PORT_DIR / "segment").glob("*.py")
     }
+
+
+def test_pipeline_loader_imports_nothing_by_name():
+    """The port's pipeline loader looks stage classes up in a fixed table:
+    no ``importlib`` (nor ``__import__``) anywhere in ``api/pipeline.py``,
+    so stored class strings never become imports."""
+    path = PORT_DIR / "api" / "pipeline.py"
+    calls = []
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            calls += [a.name for a in node.names if a.name.split(".")[0] == "importlib"]
+        elif isinstance(node, ast.ImportFrom) and (node.module or "").startswith("importlib"):
+            calls.append(node.module)
+        elif isinstance(node, ast.Name) and node.id in ("importlib", "__import__"):
+            calls.append(node.id)
+        elif isinstance(node, ast.Attribute) and node.attr == "import_module":
+            calls.append(node.attr)
+    assert not calls, calls
+    from spark_languagedetector_tpu_torch.api import pipeline
+
+    assert set(pipeline._STAGE_CLASSES.values()) == set(pipeline._WRITE_NAME)
+    assert all(name.startswith("spark_languagedetector_tpu.") for name in pipeline._WRITE_NAME.values())
 
 
 def test_entry_points_without_device_raise_when_no_cuda(monkeypatch):
@@ -133,6 +191,8 @@ def test_entry_points_without_device_raise_when_no_cuda(monkeypatch):
     table = Table({"lang": ["en", "de"], "fulltext": ["the cat", "der hund"]})
     with pytest.raises(RuntimeError, match="no CUDA device"):
         LanguageDetector(["en", "de"], [1, 2], 10).fit(table)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        LanguageDetector(["en", "de"], [1, 2], 10).set_fit_backend("device").fit(table)
     profile = GramProfile.from_gram_map({b"a": [1.0, 0.0]}, ["en", "de"], [1, 2])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         LanguageDetectorModel(profile).transform(Table({"fulltext": ["a"]}))
