@@ -84,8 +84,30 @@ Phases, one line or more each; any failure exits non-zero before the verdict:
    from a CPU session, reloaded with no device named); each reload gives the
    saved model's f32 scores bit for bit and its labels, and the segment
    model its calibration and per-cell scores.
+14. runner   — the execution layer on the card, with the config-5 and config-3
+   models of phases 4 and 6: config 5's 6,004 documents give the same f32
+   scores and labels, bit for bit, whatever the transfer form (ragged where
+   smaller, padded, the raw wire form), input lane (list, ``DocBlock``) and
+   number of dispatch workers (1, 2), and phase 4's labels; the same again
+   with a spin kernel queued ahead of every host-to-device copy, one
+   pinned buffer per size class and 256-row batches, so a buffer handed out
+   again before its copy ran would corrupt a batch; 2,000 repeated documents added, dedup on
+   equals dedup off (bit-exact at config 5; labels identical, scores in the
+   reduction-order class at config 3); fault plans on the card: a dispatch
+   fault at configs 5 and 3 (kernel paths) replays, and with one attempt
+   propagates with no degraded rung; a fetch fault replays; on a
+   ``strategy="gather"`` runner (no kernel) a dispatch fault and a
+   wire-build fault take the ladder's host rung, bit for bit the gather
+   scorer on the CPU, with the breaker opening and closing again on a fake
+   clock; a swapped kernel launch raising ``KernelLaunchError`` propagates
+   with no retry and no rung; a clean transform afterwards counts no retry,
+   no degraded batch and no breaker short-circuit. Then, claiming nothing:
+   warm docs/s over three runs, the device's busy share, the H2D bytes per
+   document of each form and the ``score/pack``/``dispatch``/``fetch`` wall
+   split read from the telemetry registry.
 
-Each phase prints its seconds.
+Each phase prints its seconds. Phase 2 also builds the native packer
+(``native/*.cpp`` with g++) and fails if it cannot.
 
 It imports nothing of JAX. Without a CUDA card, or without the package
 beside it, it exits non-zero and prints no result.
@@ -330,6 +352,13 @@ def macro_span_f1(truths, results, doc_lens, name_of=lambda lang: lang) -> float
 
 
 HOLD_CYCLES = 20_000_000  # about 10 ms of spinning at the H100's clocks
+# Spin queued ahead of each staged copy in the staging check: half of
+# HOLD_CYCLES, longer than packing a batch takes, so an early reuse lands
+# before the copy.
+STAGING_SPIN_CYCLES = 10_000_000
+STAGING_BATCH = 256  # rows per batch there: many batches of one size class per call
+LADDER_DOCS = 400  # documents of the ladder check (its host rung scores on the CPU)
+LADDER_BATCH = 128  # rows per batch there, so the open breaker short-circuits some
 
 
 def cuda_ms(torch, fn, reps: int, warmup: int = 2) -> float:
@@ -433,10 +462,18 @@ def phase_device(torch) -> str:
 def phase_build(kernels) -> None:
     from spark_languagedetector_tpu_torch.ops._kernels import build_all
 
+    from spark_languagedetector_tpu_torch import native
+
     t0 = time.perf_counter()
     built = build_all(kernels, force=True)
     say("build", f"{len(built)} kernel(s) built in {time.perf_counter() - t0:.2f}s "
         "(one nvcc per source, in parallel)")
+    t0 = time.perf_counter()
+    if not native.available():
+        fail("the native packer did not build (g++ on native/packer.cpp, refscorer.cpp); "
+             "the numpy packers would serve in its place")
+    say("build", f"native packer {native.library_path().name} ready in "
+        f"{time.perf_counter() - t0:.2f}s")
     for name, (seconds, log) in built.items():
         say("build", f"{name}: {seconds:.2f}s")
         for line in log.splitlines():
@@ -1068,13 +1105,14 @@ def device_breakdown(torch, fn, wall_ms: float, top: int = 8) -> None:
     if not rows:
         say("profile", "device time not measured (the profiler recorded no "
             "device activity)")
-        return
+        return None
     busy_ms = sum(r[1] for r in rows)
     say("profile", f"device busy {busy_ms:.2f} ms of a {wall_ms:.1f} ms warm call "
         f"(unprofiled wall) = {busy_ms / wall_ms:.1%} busy, "
         f"{1 - busy_ms / wall_ms:.1%} idle")
     for key, ms, count in rows[:top]:
         say("profile", f"  {ms:8.3f} ms  {count:5d}x  {key[:90]}")
+    return busy_ms
 
 
 def fused_compulsory_inputs(torch, SF, inp, lay):
@@ -2073,6 +2111,323 @@ def phase_persist(torch, dev, model5, texts5, model3, texts3) -> None:
         shutil.rmtree(out, ignore_errors=True)
 
 
+def _counts(REGISTRY, *names) -> dict[str, int]:
+    counters = REGISTRY.snapshot()["counters"]
+    return {n: counters.get(n, 0) for n in names}
+
+
+def _same(what: str, got, ref) -> None:
+    if not np.array_equal(got, ref):
+        diff = np.abs(np.asarray(got, np.float64) - np.asarray(ref, np.float64))
+        fail(f"{what}: not bit-identical ({int((diff > 0).sum())} entries differ, "
+             f"max abs {float(diff.max()):.3g})")
+
+
+def staging_stress(torch, dev, r5, docs5, ref_s, ref_l) -> None:
+    """Forms x dispatch workers again with a spin kernel queued ahead of
+    every host-to-device copy, one pinned buffer per size class and batches
+    of STAGING_BATCH rows (so that consecutive batches share a size class):
+    a buffer handed out again before its copy has run, or a result read
+    before its copy back, changes the scores, and the phase fails."""
+    from spark_languagedetector_tpu_torch.api import runner as runner_mod
+    from spark_languagedetector_tpu_torch.exec import staging
+
+    real_to_device = staging.Staged.to_device
+
+    def delayed(self):
+        torch.cuda._sleep(STAGING_SPIN_CYCLES)
+        return real_to_device(self)
+
+    ring = r5._staging
+    r5._staging = staging.HostStaging(dev)
+    saved = {k: getattr(r5, k) for k in ("device_encode", "dispatch_workers", "batch_size")}
+    r5.batch_size = STAGING_BATCH
+    try:
+        with swapped(staging, "RING_DEPTH", 1), swapped(staging.Staged, "to_device", delayed):
+            for form, size_test, encode in (("ragged", runner_mod.ragged_fit, False),
+                                            ("padded", lambda *a: None, False),
+                                            ("wire", runner_mod.ragged_fit, True)):
+                for workers in (1, 2):
+                    r5.device_encode, r5.dispatch_workers = encode, workers
+                    with swapped(runner_mod, "ragged_fit", size_test):
+                        s, l = r5.score(docs5), r5.predict_ids(docs5)
+                    _same(f"staging check: scores, {form} form, {workers} worker(s)", s, ref_s)
+                    _same(f"staging check: labels, {form} form, {workers} worker(s)", l, ref_l)
+        waits = r5._staging.waits
+    finally:
+        r5._staging = ring
+        for k, v in saved.items():
+            setattr(r5, k, v)
+    if not waits:
+        fail("staging check: no take waited on a copy, so no reuse was tested")
+    say("runner", f"staging check: a {STAGING_SPIN_CYCLES:,}-cycle spin ahead of every H2D "
+        f"copy, one pinned buffer per size class, {STAGING_BATCH}-row batches: 3 forms x "
+        f"1-2 workers bit for bit; {waits} takes waited on a copy's event")
+
+
+def phase_runner(torch, dev, model5, texts5, ids5, model3, case3: FitCase, smi_line) -> None:
+    """The execution layer on the card (phase 14 of the module docstring)."""
+    from spark_languagedetector_tpu_torch import Table
+    from spark_languagedetector_tpu_torch.api import runner as runner_mod
+    from spark_languagedetector_tpu_torch.api.runner import BatchRunner
+    from spark_languagedetector_tpu_torch.ops import KernelLaunchError
+    from spark_languagedetector_tpu_torch.ops import score_fused as SF
+    from spark_languagedetector_tpu_torch.ops.encode_device import DocBlock
+    from spark_languagedetector_tpu_torch.ops.encoding import texts_to_bytes
+    from spark_languagedetector_tpu_torch.resilience import faults
+    from spark_languagedetector_tpu_torch.resilience.faults import FaultPlan
+    from spark_languagedetector_tpu_torch.resilience.policy import CircuitBreaker, RetryPolicy
+    from spark_languagedetector_tpu_torch.telemetry import REGISTRY
+
+    r5, r3 = model5.runner, model3.runner
+    docs5 = [t.encode() for t in texts5]
+    docs3 = [t.encode() for t in case3.texts]
+    def batches() -> int:
+        """Batches run since the registry's last reset (one latency each)."""
+        h = REGISTRY.histograms.get("score/batch_latency_s")
+        return 0 if h is None else h.count
+
+    REGISTRY.reset()
+    r5.score(docs5)
+    n5 = batches()
+    say("runner", f"config 5: {len(docs5)} docs in {n5} batches; config 3: {len(docs3)} "
+        f"docs; card {smi_line}")
+    if n5 < 2:
+        fail("config 5 runs a single batch: the fetch fault at call 2 would not fire")
+
+    # 1. Forms x lanes x dispatch workers, bit for bit.
+    unpacks = []
+    real_unpack = runner_mod.unpack_ragged
+    saved = {k: getattr(r5, k) for k in ("device_encode", "dispatch_workers")}
+    ref_s = ref_l = None
+    per_doc = {}
+    forms = (("ragged", runner_mod.ragged_fit, False), ("padded", lambda *a: None, False),
+             ("wire", runner_mod.ragged_fit, True))
+    with swapped(runner_mod, "unpack_ragged", lambda *a: unpacks.append(1) or real_unpack(*a)):
+        for form, size_test, encode in forms:
+            for workers in (1, 2):
+                for lane in ("list", "DocBlock"):
+                    r5.device_encode, r5.dispatch_workers = encode, workers
+                    inp = docs5 if lane == "list" else DocBlock.from_bytes(docs5)
+                    REGISTRY.reset()
+                    with swapped(runner_mod, "ragged_fit", size_test):
+                        s, l = r5.score(inp), r5.predict_ids(inp)
+                    if ref_s is None:
+                        ref_s, ref_l = s, l
+                    _same(f"scores, {form} form, {lane}, {workers} worker(s)", s, ref_s)
+                    _same(f"labels, {form} form, {lane}, {workers} worker(s)", l, ref_l)
+                    if workers == 1 and lane == "list":
+                        c = _counts(REGISTRY, "score/wire_bytes", "score/wire_docs")
+                        per_doc[form] = c["score/wire_bytes"] / max(1, c["score/wire_docs"])
+    for k, v in saved.items():
+        setattr(r5, k, v)
+    _same("runner labels vs phase 4's transform", ref_l, ids5)
+    if not unpacks:
+        fail("the ragged form never ran at config 5")
+    say("runner", f"config 5: 3 forms x 2 lanes x 1-2 workers: f32 scores and labels bit for "
+        f"bit, labels = phase 4's; ragged batches {len(unpacks)}; staging ring "
+        f"{r5._staging.pinned_bytes / 1e6:.1f} MB pinned, {r5._staging.waits} waits")
+    say("runner", "H2D bytes per document (score/wire_bytes / score/wire_docs, index arrays "
+        "included): " + ", ".join(f"{f} {b:.0f}" for f, b in per_doc.items())
+        + f"; raw text {sum(map(len, docs5)) / len(docs5):.0f} ({smi_line})")
+    staging_stress(torch, dev, r5, docs5, ref_s, ref_l)
+
+    # 2. Dedup on against off, 2,000 repeated documents added.
+    for name, r, docs, exact in (("config 5", r5, docs5, True), ("config 3", r3, docs3, False)):
+        dup = docs + docs[:2000]
+        r.dedup = True
+        REGISTRY.reset()
+        s_on, l_on = r.score(dup), r.predict_ids(dup)
+        c = _counts(REGISTRY, "dedup/rows_in", "dedup/rows_unique")
+        r.dedup = False
+        s_off, l_off = r.score(dup), r.predict_ids(dup)
+        r.dedup = True
+        _same(f"{name} dedup labels", l_on, l_off)
+        if exact:
+            _same(f"{name} dedup scores", s_on, s_off)
+        elif not np.allclose(s_on, s_off, atol=ATOL, rtol=RTOL):
+            fail(f"{name} dedup scores outside the reduction-order class "
+                 f"(max abs {float(np.abs(s_on - s_off).max()):.3g})")
+        say("runner", f"{name}: {len(dup)} docs, dedup {c['dedup/rows_in']} -> "
+            f"{c['dedup/rows_unique']} rows: labels identical, scores "
+            f"{'bit for bit' if exact else 'within atol=1e-4, rtol=1e-5'} "
+            f"(max abs {float(np.abs(s_on - s_off).max()):.3g})")
+
+    # 3. Faults on the card. The kernel paths replay under the policy and
+    # then raise: no rung stands in for a CUDA kernel on the card.
+    policies = {id(r): (r.retry_policy, r.breaker) for r in (r5, r3)}
+    for name, r, docs in (("config 5", r5, docs5), ("config 3", r3, docs3)):
+        ref = r.score(docs)
+        r.retry_policy = RetryPolicy(max_attempts=2, base_delay_s=0.0)
+        REGISTRY.reset()
+        with faults.plan_scope(FaultPlan.parse("score/dispatch:error@1")):
+            s = r.score(docs)
+        c = _counts(REGISTRY, "score/retries", "resilience/degraded_batches")
+        _same(f"{name} dispatch fault: scores vs the fault-free run", s, ref)
+        if c != {"score/retries": 1, "resilience/degraded_batches": 0}:
+            fail(f"{name} dispatch fault: counters {c}")
+        r.retry_policy = RetryPolicy(max_attempts=1, base_delay_s=0.0)
+        r.breaker = CircuitBreaker(1, cooldown_s=1e9, name="score")
+        REGISTRY.reset()
+        try:
+            with faults.plan_scope(FaultPlan.parse("score/dispatch:error@1")):
+                r.score(docs)
+        except faults.InjectedFault:
+            pass
+        else:
+            fail(f"{name}: a dispatch fault with one attempt did not propagate")
+        c = REGISTRY.snapshot()["counters"]
+        bad = {k: v for k, v in c.items()
+               if k.startswith("resilience/") and k != "resilience/faults_injected"}
+        if bad:
+            fail(f"{name}: a kernel path took the ladder on the card: {bad}")
+        say("runner", f"{name}: score/dispatch:error@1 -> replayed, bit for bit the fault-free "
+            "run; with one attempt it propagates, no degraded rung")
+        r.retry_policy, r.breaker = policies[id(r)]
+    r5.retry_policy = RetryPolicy(max_attempts=2, base_delay_s=0.0)
+    REGISTRY.reset()
+    with faults.plan_scope(FaultPlan.parse("score/fetch:error@2")):
+        s = r5.score(docs5)
+    c = _counts(REGISTRY, "score/retries", "resilience/degraded_batches")
+    _same("config 5 fetch fault: scores vs the fault-free run", s, ref_s)
+    if c != {"score/retries": 1, "resilience/degraded_batches": 0}:
+        fail(f"config 5 fetch fault: counters {c}")
+    say("runner", f"config 5: score/fetch:error@2 -> batch 2 replayed, bit for bit; "
+        f"counters {c}")
+    r5.retry_policy = policies[id(r5)][0]
+
+    # The ladder on the card: a gather runner (no kernel) falls to the host
+    # rung, the same scorer on the CPU, whose scores a CPU gather runner
+    # gives bit for bit.
+    w, lut, cuckoo = model5.profile.device_membership(device="cpu")
+    sub = docs5[:LADDER_DOCS]
+
+    def gather_runner(device, **kw):
+        return BatchRunner(weights=w, lut=lut, cuckoo=cuckoo, spec=model5.profile.spec,
+                           device=device, strategy="gather", block=256,
+                           batch_size=LADDER_BATCH, **kw)
+
+    host_s = gather_runner("cpu").score(sub)
+    clk = [0.0]
+    g = gather_runner(dev, retry_policy=RetryPolicy(max_attempts=1, base_delay_s=0.0),
+                      breaker=CircuitBreaker(1, cooldown_s=10.0, clock=lambda: clk[0],
+                                             name="score"))
+    card_s = g.score(sub)
+    REGISTRY.reset()
+    with faults.plan_scope(FaultPlan.parse("score/dispatch:error@1")):
+        s = g.score(sub)
+    c = _counts(REGISTRY, "resilience/degraded_gather", "resilience/degraded_host",
+                "resilience/breaker_opened", "resilience/breaker_short_circuit")
+    _same("gather runner dispatch fault: scores vs the CPU gather runner", s, host_s)
+    if (c["resilience/degraded_host"] != batches() or c["resilience/degraded_gather"]
+            or c["resilience/breaker_opened"] != 1 or g.breaker.state != "open"
+            or not c["resilience/breaker_short_circuit"]):
+        fail(f"gather runner dispatch fault: counters {c}, breaker {g.breaker.state}")
+    _same("gather runner dispatch fault: labels vs the card's",
+          s.argmax(axis=1), card_s.argmax(axis=1))
+    say("runner", f"config 5 gather runner, {len(sub)} docs: score/dispatch:error@1 -> host "
+        f"rung for every batch, bit for bit the CPU gather runner, labels = the card's "
+        f"(max abs vs the card {float(np.abs(s - card_s).max()):.3g}); counters {c}")
+    clk[0] += 11.0
+    g.device_encode = True
+    g.retry_policy = RetryPolicy(max_attempts=2, base_delay_s=0.0)
+    REGISTRY.reset()
+    with faults.plan_scope(FaultPlan.parse("score/pack:error")):
+        s = g.score(sub)
+    c = _counts(REGISTRY, "resilience/degraded_host", "score/retries",
+                "resilience/breaker_opened", "score/encoded_batches")
+    _same("gather runner pack fault: scores vs the CPU gather runner", s, host_s)
+    if g.breaker.state != "open" or c["score/encoded_batches"] or not c["score/retries"]:
+        fail(f"gather runner pack fault: counters {c}, breaker {g.breaker.state}")
+    clk[0] += 11.0
+    REGISTRY.reset()
+    s = g.score(sub)
+    gauge = dict((tuple(sorted(k.items())), v) for k, v in
+                 REGISTRY.gauge_series().get("langdetect_degraded", []))
+    _same("gather runner after the pack fault: wire-form scores", s, card_s)
+    if g.breaker.state != "closed" or gauge.get((), 1.0) != 0.0:
+        fail(f"gather runner: breaker {g.breaker.state} and langdetect_degraded "
+             f"{gauge} after the cooldown")
+    say("runner", f"config 5 gather runner: score/pack:error -> retried once, then the host "
+        f"rung (bit for bit); breaker open; after the fake cooldown the wire form again, "
+        f"breaker closed, langdetect_degraded 0; counters {c}")
+
+    # 4. A kernel launch that fails propagates: no retry, no rung.
+
+    def refuse(*args):
+        raise KernelLaunchError("fused_detect launch failed: CUDA error 700 (swapped in "
+                                "by chip_smoke.py)")
+
+    REGISTRY.reset()
+    with swapped(SF.FUSED_DETECT, "launch", refuse):
+        try:
+            r5.predict_ids(docs5[:300])
+        except KernelLaunchError:
+            pass
+        else:
+            fail("a KernelLaunchError in the fused kernel's launch did not propagate")
+    c = REGISTRY.snapshot()["counters"]
+    bad = {k: v for k, v in c.items() if k.startswith(("resilience/", "score/retries"))}
+    if bad or r5.breaker.state != "closed":
+        fail(f"the kernel launch failure was retried or degraded: {bad}, "
+             f"breaker {r5.breaker.state}")
+    say("runner", "swapped fused_detect launch raising KernelLaunchError: propagated, "
+        "no retry, no degraded rung, breaker closed")
+
+    # 5. Clean transforms afterwards count nothing.
+    for name, model, texts, ids in (("config 5", model5, texts5, ids5),
+                                    ("config 3", model3, case3.texts, case3.ids)):
+        REGISTRY.reset()
+        pred = model.transform(Table({"fulltext": texts})).column("lang").tolist()
+        idx = {l: i for i, l in enumerate(model.profile.languages)}
+        _same(f"{name} clean transform labels", np.asarray([idx[l] for l in pred]), ids)
+        c = _counts(REGISTRY, "resilience/degraded_batches", "score/retries",
+                    "resilience/breaker_short_circuit")
+        if any(c.values()) or model.runner.breaker.state != "closed":
+            fail(f"{name}: the clean transform after the faults counted {c}")
+        say("runner", f"{name}: clean transform after the faults, labels unchanged; {c}")
+
+    # 6. Numbers, claiming nothing.
+    for name, model, texts in (("config 5", model5, texts5), ("config 3", model3, case3.texts)):
+        table = Table({"fulltext": texts})
+        model.transform(table)
+        torch.cuda.synchronize()
+        rates = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            model.transform(table)
+            torch.cuda.synchronize()
+            rates.append(len(texts) / (time.perf_counter() - t0))
+        med = float(np.median(rates))
+        say("runner", f"{name}: warm transform of {len(texts)} docs, three runs: "
+            + ", ".join(f"{x:.0f}" for x in rates)
+            + f" docs/s (median {med:.0f}, spread {(max(rates) - min(rates)) / med:.1%}; "
+            f"host clock) ({smi_line})")
+        REGISTRY.reset()
+        t0 = time.perf_counter()
+        model.transform(table)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        stages = REGISTRY.stage_summary()
+        split = {p: stages.get(p, {}).get("total_s", 0.0)
+                 for p in ("score", "score/pack", "score/dispatch", "score/fetch")}
+        t0 = time.perf_counter()
+        byte_docs = texts_to_bytes(texts)
+        enc_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        model.runner.predict_ids(byte_docs)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        say("runner", f"{name}: one warm transform {wall * 1e3:.1f} ms; spans (host clock, "
+            "registry): " + ", ".join(f"{p} {t * 1e3:.1f} ms" for p, t in split.items())
+            + f"; apart, text encode {enc_s * 1e3:.1f} ms and the whole runner call "
+            f"{run_s * 1e3:.1f} ms ({smi_line})")
+        busy = device_breakdown(torch, lambda: model.transform(table), wall * 1e3, top=5)
+        if busy is not None:
+            say("runner", f"{name}: device busy {busy / (wall * 1e3):.1%} of the warm "
+                f"transform ({smi_line})")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--quick", action="store_true",
@@ -2147,6 +2502,8 @@ def main() -> None:
         phase_fit3(torch, dev, fit3_case, smi_line)
     with phase_clock("persist"):
         phase_persist(torch, dev, model, main_docs, model3, fit3_case.texts)
+    with phase_clock("runner"):
+        phase_runner(torch, dev, model, main_docs, main_ids, model3, fit3_case, smi_line)
     bad = [k for k in ("jax", "jaxlib", "spark_languagedetector_tpu") if k in sys.modules]
     if bad:
         fail(f"JAX modules were imported: {bad}")

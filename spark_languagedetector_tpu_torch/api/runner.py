@@ -1,24 +1,56 @@
-"""Micro-batching runner: documents → padded device batches → scores or labels.
+"""Micro-batching runner: documents → device batches → scores, labels or cells.
 
 Port of ``spark_languagedetector_tpu.api.runner.BatchRunner`` for the
 ``score`` / ``predict_ids`` / ``predict`` path and segment mode's
-``segment_cells``:
+``segment_cells``, execution layer included. A call runs the JAX runner's
+sequence (``_execute_traced`` / ``_segment_traced``):
 
-* documents are grouped into padded-length buckets and byte-budgeted
-  micro-batches (``exec.core.plan_micro_batches``), so the device sees a
-  small closed set of [B, S] shapes;
+  truncate → dedup → chunk table → plan → pack (padded, ragged or wire) →
+  pinned H2D copy → dispatch under policy/breaker/ladder → asynchronous D2H
+  into pinned memory → scatter-back
+
+* ``max_score_bytes`` scores only a UTF-8-safe prefix of each document;
+* duplicate documents are planned, copied and scored once, and every
+  duplicate reads its unique row's result (``out = out[inverse]``); a
+  :class:`~..ops.encode_device.DocBlock` input skips dedup, as in JAX;
 * documents longer than the largest bucket are chunked with
   ``max(gram_lengths) - 1`` bytes of overlap; a non-final chunk owns window
-  starts ``[0, stride)`` through ``window_limit``, and the chunks' score
-  rows are summed before the argmax, so chunked documents label exactly;
-* ``max_score_bytes`` scores only a UTF-8-safe prefix of each document;
-* in label mode the argmax runs on the device and only labels (plus the
-  few score rows of chunked documents) are fetched;
-* in segment mode (:meth:`BatchRunner.segment_cells`) the device returns one
-  score vector per cell of ``SEGMENT_CELL`` window starts; long documents
-  chunk on a cell-aligned stride, so each cell is owned by one chunk. A
-  fused runner scores cells with the CUDA fused-segment kernel, every other
-  strategy with the gather cell scorer (dense, LUT or cuckoo).
+  starts ``[0, stride)`` through ``window_limit``, and the chunks' score rows
+  are summed before the argmax, so chunked documents label exactly;
+* chunks are grouped into padded-length buckets and byte-budgeted
+  micro-batches (``exec.core.plan_micro_batches``);
+* each batch is packed into pinned host memory (``exec.staging``) in one of
+  three forms — padded (``native.pack_batch``), ragged when the flat buffer
+  is smaller than the padded one (``native.pack_ragged``, rebuilt on the card
+  by ``ops.encoding.unpack_ragged``), or the raw wire form when
+  ``device_encode`` is on or the input is a ``DocBlock``
+  (``wire_from_docs``/``gather_wire``, rebuilt by
+  ``ops.encode_device.encode_batch``) — and copied ``non_blocking``;
+* batches dispatch in plan order on ``dispatch_workers`` threads
+  (``exec.core.run_ordered``) under ``exec.core.guarded_dispatch``: a
+  retryable failure replays under the ``RetryPolicy``; a ``CircuitBreaker``
+  that has opened, or a replay that is exhausted, sends the batch down the
+  degradation ladder — the device gather scorer on the profile's f32
+  weights, then the same scorer on the host — exact at every rung, counted
+  (``resilience/degraded_*``, ``langdetect_degraded``) and logged. The
+  ladder never stands in for a CUDA kernel: where the path launches one
+  (every strategy but ``gather`` on the card; in segment mode, ``fused``),
+  a failure replays under the policy and then raises;
+* every result's copy into pinned memory starts before the first fetch; a
+  fetch that fails replays its batch, then takes the ladder where allowed;
+* in label mode the argmax runs on the device and only labels (plus the few
+  score rows of chunked documents) are fetched;
+* in segment mode the device returns one score vector per cell of
+  ``SEGMENT_CELL`` window starts; long documents chunk on a cell-aligned
+  stride, so each cell is owned by one chunk; only owned cells are copied
+  back.
+
+A kernel that fails to build or launch (``KernelBuildError``,
+``KernelLaunchError``) or any CUDA error is not retryable: it propagates,
+with no replay and no ladder. The spans ``score``, ``score/pack``,
+``score/dispatch``, ``score/fetch`` and ``score/degraded`` and the JAX
+runner's counters are recorded in ``telemetry.REGISTRY`` under the same
+names, and a call that raises dumps the flight recorder.
 
 Strategies, chosen by ``auto`` in this order (the JAX package's accelerator
 order; the choice does not depend on the device — on the CPU each strategy
@@ -37,32 +69,61 @@ runs its kernels' plain versions):
 * ``"gather"``: the row-gather reference (dense, LUT or cuckoo), explicit
   or when nothing above applies.
 
-A failure of a kernel raises; there is no fallback.
+Not ported yet: the mesh branches (ROADMAP Queue 1 item 11), and the
+profiler trace and cost gauges around a call (item 7).
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+import threading
+import time
+from dataclasses import dataclass, field
 from typing import Sequence
 
 import numpy as np
 import torch
 
-from ..exec.core import plan_micro_batches, rows_under_byte_budget
+from .. import native
+from ..exec import config as exec_config
+from ..exec.core import (
+    dedup_counted,
+    guarded_dispatch,
+    plan_micro_batches,
+    rows_under_byte_budget,
+    run_ordered,
+)
+from ..exec.staging import HostStaging, copy_to_host_async, host_numpy
 from ..ops import bucket as bucket_ops
 from ..ops import cuckoo as cuckoo_ops
 from ..ops import score as score_ops
 from ..ops import score_fused, score_hist, score_pallas
+from ..ops.encode_device import (
+    DocBlock,
+    chunk_table,
+    encode_batch,
+    gather_wire,
+    utf8_safe_lengths,
+    wire_capacity,
+    wire_from_docs,
+)
 from ..ops.encoding import (
-    DEFAULT_LENGTH_BUCKETS,
     ENCODINGS,
+    RAGGED_CHUNK,
     UTF8,
     chunk_document,
-    pad_batch,
+    ragged_fit,
     truncate_utf8,
+    unpack_ragged,
 )
 from ..ops.vocab import EXACT, EXACT12, HASHED, VocabSpec
+from ..resilience import faults
+from ..resilience.policy import CLOSED, CircuitBreaker, RetryPolicy
+from ..telemetry import REGISTRY, flightrec, span, trace_request
 from ..utils.device import resolve_device
+from ..utils.logging import get_logger, log_event
+from ..utils.metrics import Metrics
+
+_log = get_logger("api.runner")
 
 DEFAULT_BATCH_SIZE = 256
 # The fused and pallas kernels keep per-document state on chip (no
@@ -73,12 +134,16 @@ DEFAULT_FUSED_BATCH_SIZE = 4096
 # long-gram membership passes per document) take the smaller batch.
 DEFAULT_HYBRID_BATCH_SIZE = 4096
 DEFAULT_HEAVY_BATCH_SIZE = 1024
-# Cap on one micro-batch's padded bytes.
-MAX_BATCH_BYTES = 8 << 20
+# Default dispatch threads (``dispatch_workers=None`` and no
+# ``LANGDETECT_DISPATCH_WORKERS``), the JAX runner's default.
+DISPATCH_WORKERS = 1
 STRATEGIES = ("auto", "fused", "pallas", "hybrid", "hist", "gather")
 # Segment-mode cell width: window start positions per device score vector
 # (a multiple of 128; the JAX package's default).
 SEGMENT_CELL = 256
+
+_U8, _I32 = np.uint8, np.int32
+_NO_POS = np.zeros(0, dtype=np.int64)
 
 
 @dataclass(frozen=True)
@@ -121,6 +186,23 @@ class BatchRunner:
     bigram strategies ``pallas_state``; for the row histogram ``hist_state``
     (None where the hybrid's long grams gather instead); for gathers
     ``table`` / ``table_lut`` and the cuckoo entries.
+
+    Execution knobs, each resolved through ``exec.config`` when None
+    (explicit value > ``LANGDETECT_*`` env > tuning profile > default):
+    ``length_buckets``, ``batch_bytes``, ``dispatch_workers``,
+    ``device_encode`` (ship the raw wire form; off by default),
+    ``degraded_fallback`` (the ladder where no CUDA kernel runs, see
+    :meth:`_ladder_allowed`; on) and ``dedup`` (on). A batch
+    ships ragged where that form is smaller than the padded one
+    (:func:`~..ops.encoding.ragged_fit`). ``retry_policy`` and ``breaker``
+    default to ``RetryPolicy.from_env()`` and
+    ``CircuitBreaker.from_env(name="score")``; ``metrics`` holds the
+    runner's own counters and timers.
+
+    Concurrent callers may score on one runner from several threads: each
+    call plans, packs and scatters into its own state, the lazily built
+    operands are guarded by ``_state_lock``, and the metrics, the registry
+    and the staging ring lock internally.
     """
 
     weights: object
@@ -129,17 +211,45 @@ class BatchRunner:
     cuckoo: cuckoo_ops.CuckooTable | None = None
     device: object | None = None
     batch_size: int | None = None  # None ⇒ by strategy
-    length_buckets: tuple[int, ...] = DEFAULT_LENGTH_BUCKETS
-    batch_bytes: int = MAX_BATCH_BYTES
+    length_buckets: tuple[int, ...] | None = None
+    batch_bytes: int | None = None
     block: int = score_ops.DEFAULT_BLOCK  # gather window block
     strategy: str = "auto"
     quantization: str | None = None  # 'int8' | 'int16' fused tables
     max_score_bytes: int | None = None
     score_encoding: str = UTF8
+    dispatch_workers: int | None = None
+    device_encode: bool | None = None
+    retry_policy: RetryPolicy | None = None
+    breaker: CircuitBreaker | None = None
+    degraded_fallback: bool | None = None
+    dedup: bool | None = None
+    metrics: Metrics = field(default_factory=Metrics)
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
-        self.length_buckets = tuple(self.length_buckets)
+        # Created first: the lazily built operands resolve through it.
+        self._state_lock = threading.Lock()
+        self.length_buckets = tuple(
+            exec_config.resolve("length_buckets", self.length_buckets)
+        )
+        self.batch_bytes = int(exec_config.resolve("batch_bytes", self.batch_bytes))
+        if self.dispatch_workers is None:
+            self.dispatch_workers = exec_config.resolve("dispatch_workers")
+        if self.retry_policy is None:
+            self.retry_policy = RetryPolicy.from_env()
+        if self.breaker is None:
+            self.breaker = CircuitBreaker.from_env(name="score")
+        if self.degraded_fallback is None:
+            self.degraded_fallback = bool(exec_config.resolve("degraded"))
+        if self.dedup is None:
+            self.dedup = bool(exec_config.resolve("dedup"))
+        if self.device_encode is None:
+            self.device_encode = bool(exec_config.resolve("device_encode"))
+        # True while the last dispatch rode the degradation ladder; drives
+        # the langdetect_degraded gauge's reset on fast-path recovery.
+        self._degraded_mode = False
+        self._staging = HostStaging(self.device)
         if self.score_encoding not in ENCODINGS:
             raise ValueError(
                 f"unknown score_encoding {self.score_encoding!r}; expected "
@@ -166,10 +276,12 @@ class BatchRunner:
         if lut is not None and self.cuckoo is not None:
             raise ValueError("pass a LUT or a cuckoo table for membership, not both")
         self.num_langs = w.shape[1]
-        # Host membership, kept for the gather cell scorer's operands, which
-        # are uploaded on the first segment request of a non-fused runner.
+        # Host membership (the profile's f32 weights), kept for the gather
+        # scorer's operands: uploaded on the first segment request of a
+        # non-fused runner or the first degraded batch, and the host rung.
         self._host_weights, self._host_lut = w, lut
-        self._cell_operands = None
+        self._gather_ops = None
+        self._host_ops = None
         fused_ok = score_fused.fused_supported(
             self.spec, w.shape[0], w.shape[1], lut=lut, cuckoo=self.cuckoo
         )
@@ -211,6 +323,14 @@ class BatchRunner:
                 )
             else:
                 self.batch_size = DEFAULT_BATCH_SIZE
+        log_event(
+            _log, "runner.strategy", strategy=self.strategy,
+            reason=self.strategy_reason, device=str(self.device),
+            quantization=self.quantization,
+        )
+        # The one-time packer build happens here, not inside the first
+        # call's hot loop.
+        native.available()
 
     # -- strategy selection and operands ---------------------------------------
     def _hybrid_supported(self) -> bool:
@@ -359,17 +479,6 @@ class BatchRunner:
         )
 
     # -- device work ----------------------------------------------------------
-    def _to_device(self, docs: Sequence[bytes], limits: np.ndarray, pad_to: int):
-        batch_np, lengths_np = pad_batch(docs, pad_to)
-        batch = torch.from_numpy(batch_np).to(self.device)
-        lengths = torch.from_numpy(lengths_np).to(self.device)
-        window_limit = (
-            None
-            if bool((limits == self.max_chunk).all())
-            else torch.from_numpy(limits.astype(np.int32)).to(self.device)
-        )
-        return batch, lengths, window_limit
-
     def _scores(self, batch, lengths, window_limit) -> torch.Tensor:
         if self.strategy == "fused":
             return score_fused.score_batch_fused(
@@ -413,31 +522,69 @@ class BatchRunner:
             block=block, window_limit=window_limit, gram_lengths_subset=subset,
         )
 
-    def _gather_cell_operands(self):
-        """(table, lut, cuckoo entries) of the gather cell scorer on the
-        device: the profile's own f32 membership. The gather strategies hold
-        it already; the kernel strategies upload it on first use."""
-        if self._cell_operands is None:
-            dev = self.device
-            table, lut, entries = self.table, self.table_lut, self._cuckoo_entries
-            if table is None:
-                table = torch.from_numpy(self._host_weights).to(dev)
-                if self.cuckoo is not None:
-                    entries = torch.from_numpy(self.cuckoo.entries()).to(dev)
-                elif self._host_lut is not None:
-                    lut = torch.from_numpy(self._host_lut).to(dev)
-                self._table_bytes += sum(
-                    t.numel() * t.element_size()
-                    for t in (table, lut, entries) if t is not None
-                )
-            self._cell_operands = (table, lut, entries)
-        return self._cell_operands
+    def _gather_operands(self):
+        """(table, lut, cuckoo entries) of the gather scorers on the device:
+        the profile's own f32 membership, never a quantized table. The
+        gather strategies hold it already; the kernel strategies upload it
+        on first use (a segment request, or the ladder's gather rung)."""
+        ops = self._gather_ops
+        if ops is not None:
+            return ops
+        with self._state_lock:
+            if self._gather_ops is None:
+                dev = self.device
+                table, lut, entries = self.table, self.table_lut, self._cuckoo_entries
+                if table is None or self.strategy == "fused":
+                    table = torch.from_numpy(self._host_weights).to(dev)
+                    lut = entries = None
+                    if self.cuckoo is not None:
+                        entries = torch.from_numpy(self.cuckoo.entries()).to(dev)
+                    elif self._host_lut is not None:
+                        lut = torch.from_numpy(self._host_lut).to(dev)
+                    self._table_bytes += sum(
+                        t.numel() * t.element_size()
+                        for t in (table, lut, entries) if t is not None
+                    )
+                self._gather_ops = (table, lut, entries)
+            return self._gather_ops
 
-    def _window_scores_device(self, batch, lengths, window_limit, cell) -> torch.Tensor:
-        """Gather-formulation per-cell scorer: segment mode's exactness
-        oracle, and the route of every non-fused strategy (the bigram and
-        row-histogram kernels have no per-cell form)."""
-        table, lut, entries = self._gather_cell_operands()
+    def _host_operands(self):
+        """(table, lut, cuckoo entries) as CPU tensors: the ladder's host
+        rung. Built at its first use; keeping them would double resident
+        table memory for a path that normally never runs."""
+        ops = self._host_ops
+        if ops is not None:
+            return ops
+        with self._state_lock:
+            if self._host_ops is None:
+                self._host_ops = (
+                    torch.from_numpy(self._host_weights),
+                    None if self._host_lut is None else torch.from_numpy(self._host_lut),
+                    None if self.cuckoo is None
+                    else torch.from_numpy(self.cuckoo.entries()),
+                )
+            return self._host_ops
+
+    def _gather_scores_on(self, operands, batch, lengths, window_limit) -> torch.Tensor:
+        """The gather scorer (cuckoo, LUT or dense) over ``operands`` on
+        their device: the ladder's escape hatch, exact for every profile
+        form, so degraded results are bit-identical to ``strategy='gather'``."""
+        table, lut, entries = operands
+        block = min(self.block, 256)
+        if self.cuckoo is not None:
+            return score_ops.score_batch_cuckoo(
+                batch, lengths, table, entries,
+                seed1=self.cuckoo.seed1, seed2=self.cuckoo.seed2, spec=self.spec,
+                block=block, window_limit=window_limit,
+            )
+        return score_ops.score_batch(
+            batch, lengths, table, lut, spec=self.spec, block=block,
+            window_limit=window_limit,
+        )
+
+    def _window_scores_on(self, operands, batch, lengths, window_limit, cell) -> torch.Tensor:
+        """The gather cell scorer over ``operands`` on their device."""
+        table, lut, entries = operands
         if self.cuckoo is not None:
             return score_ops.window_scores_batch_cuckoo(
                 batch, lengths, table, entries,
@@ -449,16 +596,54 @@ class BatchRunner:
             block=min(self.block, 1024), window_limit=window_limit,
         )
 
+    def _window_scores_device(self, batch, lengths, window_limit, cell) -> torch.Tensor:
+        """Gather-formulation per-cell scorer: segment mode's exactness
+        oracle, and the route of every non-fused strategy (the bigram and
+        row-histogram kernels have no per-cell form)."""
+        return self._window_scores_on(
+            self._gather_operands(), batch, lengths, window_limit, cell
+        )
+
+    def _gather_escape(self, batch, lengths, window_limit) -> torch.Tensor:
+        """The ladder's device rung: the gather scorer on the runner's
+        device over the profile's f32 weights, whatever the strategy. Only
+        a kernel strategy takes it, so only on the CPU
+        (:meth:`_ladder_allowed`)."""
+        return self._gather_scores_on(self._gather_operands(), batch, lengths, window_limit)
+
+    def _host_scores(self, batch, lengths, window_limit) -> torch.Tensor:
+        """The ladder's last rung: the same gather scorer on CPU tensors."""
+        return self._gather_scores_on(self._host_operands(), batch, lengths, window_limit)
+
+    def _host_window_scores(self, batch, lengths, window_limit, cell) -> torch.Tensor:
+        """The segment ladder's last rung: the gather cell scorer on CPU
+        tensors."""
+        return self._window_scores_on(self._host_operands(), batch, lengths, window_limit, cell)
+
     def _segment_dispatch_device(self, batch, lengths, window_limit, cell) -> torch.Tensor:
         """One packed batch → f32 [B, ceil(pad_to / cell), L] raw cell
         scores: the fused-segment kernel for a fused runner, the gather cell
-        scorer for every other strategy."""
+        scorer for every other strategy. Fault site ``score/dispatch``."""
+        faults.inject("score/dispatch")
         if self.strategy == "fused":
             return score_fused.segment_batch_fused(
                 batch, lengths, self.table, self.scales, self.table_lut, window_limit,
                 spec=self.spec, layout=self.layout, cell=cell,
             )
         return self._window_scores_device(batch, lengths, window_limit, cell)
+
+    def _dispatch_device(self, batch, lengths, window_limit, labels: bool = False):
+        """One batch on the device through the strategy: f32 [B, L] scores,
+        or int32 [B] labels when ``labels``. Fault site ``score/dispatch``
+        (the padded and ragged forms; the wire form's site is
+        ``score/pack``, as in the JAX runner)."""
+        faults.inject("score/dispatch")
+        return self._strategy_dispatch(batch, lengths, window_limit, labels)
+
+    def _strategy_dispatch(self, batch, lengths, window_limit, labels: bool):
+        if labels:
+            return self._labels(batch, lengths, window_limit)
+        return self._scores(batch, lengths, window_limit)
 
     def _labels(self, batch, lengths, window_limit) -> torch.Tensor:
         if self.strategy == "fused":
@@ -470,11 +655,15 @@ class BatchRunner:
         return score_ops.argmax_language(self._scores(batch, lengths, window_limit))
 
     # -- public API -----------------------------------------------------------
-    def score(self, byte_docs: Sequence[bytes]) -> np.ndarray:
-        """float32 [N, L] scores in input order (exact over any doc length)."""
+    def score(self, byte_docs) -> np.ndarray:
+        """float32 [N, L] scores in input order (exact over any doc length).
+        ``byte_docs`` is a sequence of ``bytes`` or a
+        :class:`~..ops.encode_device.DocBlock` (one byte plane + offsets,
+        the all-unique lane: no per-document Python objects, the raw wire
+        form, the padded batch rebuilt on the card)."""
         return self._execute(byte_docs, want_labels=False)
 
-    def predict_ids(self, byte_docs: Sequence[bytes]) -> np.ndarray:
+    def predict_ids(self, byte_docs) -> np.ndarray:
         """int32 [N] argmax language indices in input order. The argmax runs
         on the device; only chunked documents fetch score rows, which are
         summed across chunks before their argmax."""
@@ -493,6 +682,552 @@ class BatchRunner:
             return [truncate_utf8(d, cap) for d in byte_docs]
         return [d[:cap] for d in byte_docs]
 
+    # -- host side of one batch --------------------------------------------------
+    def _limit_np(self, limits: np.ndarray) -> np.ndarray | None:
+        """int32 window limits of a batch, or None when no chunk of it is
+        limited (the common case: one fewer copy)."""
+        if bool((limits == self.max_chunk).all()):
+            return None
+        return limits.astype(np.int32)
+
+    def _stage_padded(self, batch_docs, pad_to: int, limit_np):
+        """Pack one batch padded straight into pinned memory → staged."""
+        rows = len(batch_docs)
+        fields = [("batch", _U8, (rows, pad_to)), ("lengths", _I32, (rows,))]
+        if limit_np is not None:
+            fields.append(("limit", _I32, (rows,)))
+        st = self._staging.take(fields)
+        with st:
+            v = st.views
+            native.pack_batch(batch_docs, pad_to, out=v["batch"], lengths_out=v["lengths"])
+            if limit_np is not None:
+                v["limit"][:] = limit_np
+        return st
+
+    def _stage_ragged(self, batch_docs, pad_to: int, limit_np, rows_flat: int, step: int):
+        """Pack one batch ragged (``rows_flat`` chunk rows) into pinned memory."""
+        rows = len(batch_docs)
+        fields = [
+            ("flat", _U8, (rows_flat, RAGGED_CHUNK)),
+            ("offs", _I32, (rows,)),
+            ("lengths", _I32, (rows,)),
+        ]
+        if limit_np is not None:
+            fields.append(("limit", _I32, (rows,)))
+        st = self._staging.take(fields)
+        with st:
+            v = st.views
+            _, offs, lengths = native.pack_ragged(
+                batch_docs, pad_to, flat_step=step, out=v["flat"]
+            )
+            v["offs"][:] = offs
+            v["lengths"][:] = lengths
+            if limit_np is not None:
+                v["limit"][:] = limit_np
+        return st
+
+    def _fetch(self, arr, started=None) -> np.ndarray:
+        """Host numpy value of one result tensor: from its started pinned
+        copy (``started``, see ``exec.staging.copy_to_host_async``) once the
+        copy's event has synchronized, else a synchronous copy. Every result
+        byte the runner pulls off the device goes through here
+        (``score/fetch_bytes``): a label request fetches 4·B bytes of ids
+        plus the chunked documents' few score rows, on every rung."""
+        # A multi-process mesh assembles a result with process_allgather
+        # here in the JAX runner: ROADMAP Queue 1 item 11.
+        if started is None:
+            started = copy_to_host_async(arr)
+        host = host_numpy(started)
+        REGISTRY.incr("score/fetch_bytes", int(host.nbytes))
+        return host
+
+    @staticmethod
+    def _start_fetches(tensors):
+        """Start each tensor's copy to pinned host memory (None stays None).
+        A copy that cannot start (an error surfacing early) is left to the
+        fetch loop, which replays it under the policy."""
+        out = []
+        for t in tensors:
+            try:
+                out.append(None if t is None else copy_to_host_async(t))
+            except Exception:
+                out.append(None)
+        return out
+
+    def _fence(self, t) -> None:
+        """Wait for the device work queued so far (a ladder rung counts as
+        a success only once its scores exist, so a deferred error surfaces
+        inside the ladder and not in the caller's fetch loop)."""
+        if t.is_cuda:
+            torch.cuda.current_stream(t.device).synchronize()
+
+    # -- degraded-mode fallback --------------------------------------------------
+    def _ladder_allowed(self, segment: bool = False) -> bool:
+        """Whether a failed batch may fall down the degradation ladder:
+        ``degraded_fallback`` is on, and the path launches no CUDA kernel.
+        On the card every strategy but ``gather`` launches one (in segment
+        mode only ``fused`` does); there a failure replays under the policy
+        and then raises, so a kernel that cannot build, load or run is never
+        replaced by the gather scorer or the CPU."""
+        if not self.degraded_fallback:
+            return False
+        if self.device.type != "cuda":
+            return True
+        return self.strategy != "fused" if segment else self.strategy == "gather"
+
+    def _degrade(self, level: str, rows: int, pad_to: int, cause, **extra) -> None:
+        self._degraded_mode = True
+        self.metrics.incr("degraded_batches")
+        REGISTRY.incr("resilience/degraded_batches")
+        REGISTRY.incr(f"resilience/degraded_{level}")
+        REGISTRY.set_gauge("langdetect_degraded", 1.0)
+        log_event(
+            _log, "runner.degraded", level=level, rows=rows, pad_to=pad_to,
+            breaker=self.breaker.state,
+            cause=repr(cause) if cause is not None else None, **extra,
+        )
+
+    def _ladder(self, batch_docs, batch_limits, pad_to: int, cause, device_rung, host_rung,
+                **attrs):
+        """Run one batch down the degradation ladder after the fast path
+        failed (or while the breaker holds it open):
+
+          1. ``gather`` — ``device_rung``, the gather scorer on the card
+             over the profile's f32 weights (None where the fast path is
+             that program already);
+          2. ``host``   — ``host_rung``, the same scorer on CPU tensors.
+
+        Each rung takes ``(batch, lengths, window_limit)`` tensors on its
+        device. Each rung is fenced before it counts as a success; a
+        retryable failure moves down a rung, anything else raises. Exact at
+        every rung: degraded mode trades throughput, never correctness."""
+        limit_np = self._limit_np(np.asarray(batch_limits))
+        batch_np, lengths_np = native.pack_batch(batch_docs, pad_to)
+        levels = ["host"] if device_rung is None else ["gather", "host"]
+        last = cause
+        for level in levels:
+            try:
+                with span(
+                    "score/degraded", rows=len(batch_docs), pad_to=pad_to,
+                    level=level, degraded=True, **attrs,
+                ) as sp:
+                    if level == "gather":
+                        faults.inject("score/dispatch")
+                        dev, rung = self.device, device_rung
+                    else:
+                        dev, rung = torch.device("cpu"), host_rung
+                    out = rung(
+                        torch.from_numpy(batch_np).to(dev),
+                        torch.from_numpy(lengths_np).to(dev),
+                        None if limit_np is None else torch.from_numpy(limit_np).to(dev),
+                    )
+                    self._fence(out)
+                    sp.fence(out)
+            except Exception as e:
+                if not self.retry_policy.classify(e):
+                    raise
+                last = e
+                continue
+            self._degrade(level, len(batch_docs), pad_to, cause, **attrs)
+            return out
+        raise last if last is not None else RuntimeError(
+            "degraded ladder exhausted with no recorded cause"
+        )
+
+    def _degraded_scores(self, batch_docs, batch_limits, pad_to: int, cause=None):
+        """The ladder for whole-document scores: a kernel strategy (fused,
+        pallas, hybrid, hist; on the CPU, their plain versions) falls to the
+        device gather first, ``gather`` straight to the host."""
+        return self._ladder(
+            batch_docs, batch_limits, pad_to, cause,
+            None if self.strategy == "gather" else self._gather_escape, self._host_scores,
+        )
+
+    def _segment_degraded(self, batch_docs, batch_limits, pad_to: int, cell: int, cause=None):
+        """The ladder in segment mode: only a fused runner has a different
+        device program to fall back from; every other strategy's segment
+        dispatch is already the gather cell scorer."""
+        return self._ladder(
+            batch_docs, batch_limits, pad_to, cause,
+            (lambda b, ln, lim: self._window_scores_device(b, ln, lim, cell))
+            if self.strategy == "fused" else None,
+            lambda b, ln, lim: self._host_window_scores(b, ln, lim, cell), segment=True,
+        )
+
+    # -- whole-document execution ----------------------------------------------
+    def _execute(self, byte_docs, *, want_labels: bool):
+        # Flight-recorder hook: a raising call dumps the recent telemetry
+        # ring (when LANGDETECT_FLIGHT_RECORDER armed it) before propagating.
+        try:
+            return self._execute_traced(byte_docs, want_labels=want_labels)
+        except Exception as e:
+            flightrec.record_crash("score", e)
+            raise
+
+    def _execute_traced(self, byte_docs, *, want_labels: bool):
+        block = byte_docs if isinstance(byte_docs, DocBlock) else None
+        inverse = None
+        if block is not None:
+            doc_starts = block.starts()
+            doc_lens = block.lengths()
+            if self.max_score_bytes:
+                cap = self.max_score_bytes
+                if self.score_encoding == UTF8:
+                    doc_lens = utf8_safe_lengths(block.flat, doc_starts, doc_lens, cap)
+                else:
+                    doc_lens = np.minimum(doc_lens, cap)
+            # The block lane is the all-unique lane: content dedup would
+            # re-materialize per-document bytes just to key on them.
+            N_in = N = len(block)
+        else:
+            byte_docs = self.scored_docs(byte_docs)
+            N_in = len(byte_docs)
+            # In-flight dedup, keyed on the truncated bytes the kernel would
+            # see; duplicates are satisfied by ``out[inverse]`` at the end.
+            if self.dedup and N_in > 1:
+                d = dedup_counted(byte_docs)
+                if d is not None:
+                    first_idx, inverse, _ = d
+                    byte_docs = [byte_docs[int(i)] for i in first_idx]
+            N = len(byte_docs)
+        L = self.num_langs
+        out = np.zeros(N, dtype=np.int32) if want_labels else np.zeros((N, L), dtype=np.float32)
+        if N == 0:
+            return out
+
+        overlap = max(self.spec.gram_lengths) - 1
+        max_chunk = self.max_chunk
+        stride = max_chunk - overlap
+        # Work items (doc index, chunk bytes or span, window limit). The
+        # block lane never cuts chunk bytes: chunks are (start, length)
+        # spans into the byte plane, in the same (doc, rank) order.
+        if block is not None:
+            doc_idx_arr, chunk_starts, chunk_lens, limits_arr = chunk_table(
+                doc_starts, doc_lens, max_chunk, overlap
+            )
+            chunks = None
+            sizes = chunk_lens
+            n_chunks = int(chunk_lens.size)
+        else:
+            doc_idx: list[int] = []
+            chunks = []
+            limits: list[int] = []
+            for i, doc in enumerate(byte_docs):
+                if len(doc) <= max_chunk:
+                    doc_idx.append(i)
+                    chunks.append(doc)
+                    limits.append(max_chunk)  # no-op limit
+                    continue
+                parts = chunk_document(doc, max_chunk, overlap)
+                for j, part in enumerate(parts):
+                    doc_idx.append(i)
+                    chunks.append(part)
+                    limits.append(stride if j < len(parts) - 1 else max_chunk)
+            doc_idx_arr = np.asarray(doc_idx, dtype=np.int64)
+            limits_arr = np.asarray(limits, dtype=np.int64)
+            chunk_starts = chunk_lens = None
+            sizes = [len(c) for c in chunks]
+            n_chunks = len(chunks)
+
+        def chunk_bytes(sel):
+            """Materialized chunk bytes of one planned batch (the padded,
+            ragged and degraded packers' input; the wire form never calls
+            it)."""
+            if chunks is not None:
+                return [chunks[k] for k in sel]
+            flat = block.flat
+            return [
+                flat[s : s + ln].tobytes()
+                for s, ln in zip(chunk_starts[sel], chunk_lens[sel])
+            ]
+
+        plan = self.plan(sizes)
+        # The chunk-length distribution at 64-byte granularity (the JAX
+        # package's tuner reads it): after truncation and chunking, the
+        # population the lattice pads.
+        if len(sizes):
+            edges = np.minimum(
+                -(-np.maximum(np.asarray(sizes, dtype=np.int64), 1) // 64) * 64,
+                max_chunk,
+            )
+            for edge, cnt in zip(*np.unique(edges, return_counts=True)):
+                REGISTRY.incr(f"exec/len/{int(edge)}", int(cnt))
+        use_encode = self.device_encode or block is not None
+        ladder = self._ladder_allowed()
+
+        # Chunked docs (len > max_chunk) need their full score rows fetched
+        # and summed across chunks before the argmax; every other doc
+        # fetches one int32 in label mode.
+        chunk_rank: dict[int, int] = {}
+        chunk_acc = None
+        chunked_item = None  # per work item: is it a chunk of a chunked doc
+        if want_labels:
+            if block is not None:
+                for i in np.flatnonzero(doc_lens > max_chunk):
+                    chunk_rank[int(i)] = len(chunk_rank)
+            else:
+                for i, doc in enumerate(byte_docs):
+                    if len(doc) > max_chunk:
+                        chunk_rank[i] = len(chunk_rank)
+            if chunk_rank:
+                chunk_acc = np.zeros((len(chunk_rank), L), dtype=np.float32)
+                chunked_item = np.isin(
+                    doc_idx_arr, np.fromiter(chunk_rank, dtype=np.int64, count=len(chunk_rank))
+                )
+
+        def chunk_pos(sel) -> np.ndarray:
+            """Rows of a batch that hold chunks of chunked documents."""
+            if chunked_item is None:
+                return _NO_POS
+            return np.flatnonzero(chunked_item[sel])
+
+        def dispatch(batch, lengths, window_limit, sel, device_encode: bool):
+            """The strategy on one batch: labels straight from the device
+            when no row is a chunk (the fused kernel's in-kernel argmax),
+            else scores."""
+            labels = want_labels and chunk_pos(sel).size == 0
+            if device_encode:
+                return self._strategy_dispatch(batch, lengths, window_limit, labels)
+            return self._dispatch_device(batch, lengths, window_limit, labels)
+
+        def encode_and_dispatch(sel: np.ndarray, pad_to: int):
+            """The wire form: raw concatenated bytes + int32 offsets into
+            pinned memory, the padded batch rebuilt on the card. An injected
+            ``score/pack`` fault (or a real wire-build failure) rides the
+            shared retry/degraded wiring, whose ladder re-packs on the host
+            — the exact fallback."""
+            rows = len(sel)
+            limit_np = self._limit_np(limits_arr[sel])
+            if block is not None:
+                real_bytes = int(chunk_lens[sel].sum())
+            else:
+                batch_docs = [chunks[k] for k in sel]
+                real_bytes = sum(map(len, batch_docs))
+            capacity = wire_capacity(real_bytes, rows, pad_to)
+            with span("score/pack", parent=score_span, rows=rows, pad_to=pad_to, wire=True):
+                faults.inject("score/pack")
+                fields = [("wire", _U8, (capacity,)), ("starts", _I32, (rows,)),
+                          ("lengths", _I32, (rows,))]
+                if limit_np is not None:
+                    fields.append(("limit", _I32, (rows,)))
+                st = self._staging.take(fields)
+                with st:
+                    v = st.views
+                    if block is not None:
+                        _, starts_np, lengths_np = gather_wire(
+                            block.flat, chunk_starts[sel], chunk_lens[sel], capacity,
+                            out=v["wire"],
+                        )
+                    else:
+                        _, starts_np, lengths_np = wire_from_docs(
+                            batch_docs, capacity, out=v["wire"]
+                        )
+                    v["starts"][:] = starts_np
+                    v["lengths"][:] = lengths_np
+                    if limit_np is not None:
+                        v["limit"][:] = limit_np
+            # Observed after the wire build succeeds, so chaos retries never
+            # double-count shipped bytes.
+            fill = real_bytes / capacity if capacity else 1.0
+            REGISTRY.observe("score/batch_fill_ratio", fill)
+            REGISTRY.observe("score/padding_waste", 1.0 - fill)
+            REGISTRY.incr("score/real_bytes", real_bytes)
+            REGISTRY.incr("score/capacity_bytes", capacity)
+            index_bytes = 8 * rows + (0 if limit_np is None else limit_np.nbytes)
+            REGISTRY.incr("score/wire_bytes", capacity + index_bytes)
+            REGISTRY.incr("score/wire_docs", rows)
+            REGISTRY.incr("score/encoded_batches")
+            with span("score/dispatch", parent=score_span, rows=rows, pad_to=pad_to,
+                      wire=True) as sp:
+                dev = st.to_device()
+                batch = encode_batch(dev["wire"], dev["starts"], dev["lengths"], pad_to)
+                result = dispatch(batch, dev["lengths"], dev.get("limit"), sel, True)
+                sp.fence(result)
+            return result
+
+        def build_and_dispatch(sel: np.ndarray, pad_to: int):
+            """Pack one planned batch and dispatch it. Re-invocable: scoring
+            is stateless, so a transient failure is retried by replaying the
+            batch verbatim."""
+            if use_encode:
+                return encode_and_dispatch(sel, pad_to)
+            batch_docs = chunk_bytes(sel)
+            rows = len(batch_docs)
+            limit_np = self._limit_np(limits_arr[sel])
+            real_bytes = sum(map(len, batch_docs))
+
+            def observe_fill(capacity: int, index_bytes: int) -> None:
+                fill = real_bytes / capacity if capacity else 1.0
+                REGISTRY.observe("score/batch_fill_ratio", fill)
+                REGISTRY.observe("score/padding_waste", 1.0 - fill)
+                REGISTRY.incr("score/real_bytes", real_bytes)
+                REGISTRY.incr("score/capacity_bytes", capacity)
+                REGISTRY.incr("score/wire_bytes", capacity + index_bytes)
+                REGISTRY.incr("score/wire_docs", rows)
+
+            # The JAX runner's mesh branch ships padded only: ROADMAP
+            # Queue 1 item 11.
+            ragged = ragged_fit(batch_docs, pad_to)
+            if ragged is not None:
+                rows_flat, step = ragged
+                observe_fill(rows_flat * RAGGED_CHUNK, 8 * rows)
+                with span("score/pack", parent=score_span, rows=rows, pad_to=pad_to):
+                    st = self._stage_ragged(batch_docs, pad_to, limit_np, rows_flat, step)
+                with span("score/dispatch", parent=score_span, rows=rows,
+                          pad_to=pad_to) as sp:
+                    dev = st.to_device()
+                    batch = unpack_ragged(dev["flat"], dev["offs"], dev["lengths"], pad_to)
+                    result = dispatch(batch, dev["lengths"], dev.get("limit"), sel, False)
+                    sp.fence(result)
+                return result
+            observe_fill(rows * pad_to, 4 * rows)
+            with span("score/pack", parent=score_span, rows=rows, pad_to=pad_to):
+                st = self._stage_padded(batch_docs, pad_to, limit_np)
+            with span("score/dispatch", parent=score_span, rows=rows, pad_to=pad_to) as sp:
+                dev = st.to_device()
+                result = dispatch(dev["batch"], dev["lengths"], dev.get("limit"), sel, False)
+                sp.fence(result)
+            return result
+
+        def project(sel, result):
+            """A batch's device result → (tensors to fetch, chunk positions):
+            in label mode ((argmax ids [rows], chunk-row scores or None),
+            positions of the chunk rows); else ((scores,), None). A ladder
+            rung always returns scores."""
+            if not want_labels:
+                return (result,), None
+            if result.dim() == 1:
+                return (result, None), _NO_POS
+            pos = chunk_pos(sel)
+            am = score_ops.argmax_language(result)
+            sub = result[torch.from_numpy(pos).to(result.device)] if pos.size else None
+            return (am, sub), pos
+
+        def fetch_all(tensors, handles=None):
+            handles = handles or [None] * len(tensors)
+            return tuple(
+                None if t is None else self._fetch(t, h) for t, h in zip(tensors, handles)
+            )
+
+        def on_retry(attempt_no, delay_s, exc):
+            """Per-retry bookkeeping shared by the dispatch and fetch sites
+            (RetryPolicy.run logs the attempt itself). List append is atomic
+            under the GIL, so dispatch workers need no extra lock."""
+            self.metrics.incr("retries")
+            REGISTRY.incr("score/retries")
+            call_retries.append(1)
+
+        def degraded_for(sel, pad_to, cause):
+            batch_docs = chunk_bytes(sel)
+            batch_limits = limits_arr[sel]
+            return self._degraded_scores(batch_docs, batch_limits, pad_to, cause)
+
+        def on_recovered():
+            if self._degraded_mode and self.breaker.state == CLOSED:
+                # Fast path healthy again and the breaker agrees.
+                self._degraded_mode = False
+                REGISTRY.set_gauge("langdetect_degraded", 0.0)
+                log_event(_log, "runner.degraded_recovered")
+
+        def dispatch_recover(sel, pad_to):
+            return guarded_dispatch(
+                lambda: build_and_dispatch(sel, pad_to),
+                policy=self.retry_policy,
+                site="score/dispatch",
+                breaker=self.breaker if ladder else None,
+                degraded=(lambda cause: degraded_for(sel, pad_to, cause)) if ladder else None,
+                on_retry=on_retry,
+                on_recovered=on_recovered,
+                log_fields={"rows": len(sel)},
+            )
+
+        def run_one(item):
+            """Pack, copy, dispatch and project one planned batch. Only
+            (sel, pad_to) is kept for a replay: the buffers are rebuilt from
+            the chunks on the rare fetch failure."""
+            sel, pad_to = item
+            t0 = time.perf_counter()
+            result = dispatch_recover(sel, pad_to)
+            self.metrics.incr("chunks_scored", len(sel))
+            REGISTRY.observe("score/batch_latency_s", time.perf_counter() - t0)
+            return sel, project(sel, result), pad_to
+
+        workers = self.dispatch_workers
+        if workers is None:
+            workers = DISPATCH_WORKERS
+        workers = max(1, min(int(workers), len(plan)))
+        call_retries: list[int] = []
+        # One request trace per call (an ambient one is joined); every span
+        # below, the dispatch workers' included, stamps its id. The JAX
+        # runner's profiler trace around the call is ROADMAP Queue 1 item 7.
+        with trace_request() as req_id, self.metrics.timer("score_s"), span(
+            "score", docs=N_in, unique=N, batches=len(plan), strategy=self.strategy,
+            strategy_reason=getattr(self, "strategy_reason", "explicit"),
+        ) as score_span:
+            pending = run_ordered(plan, run_one, workers)
+            with span("score/fetch", batches=len(plan)):
+                # Every batch's copy to pinned memory starts before the
+                # first fetch, so result copies overlap the remaining work.
+                started = [self._start_fetches(p[0]) for _, p, _ in pending]
+                for (sel, (tensors, pos), pad_to), handles in zip(pending, started):
+                    try:
+                        faults.inject("score/fetch")
+                        fetched = fetch_all(tensors, handles)
+                    except Exception as e:
+                        # A failure surfacing only at the fetch: replay the
+                        # batch synchronously under the policy, then take
+                        # the ladder. Deterministic errors propagate.
+                        if not self.retry_policy.classify(e):
+                            raise
+
+                        def replay(sel=sel, pad_to=pad_to):
+                            faults.inject("score/fetch")
+                            got, got_pos = project(sel, build_and_dispatch(sel, pad_to))
+                            return fetch_all(got), got_pos
+
+                        try:
+                            fetched, pos = self.retry_policy.run(
+                                replay, site="score/fetch", breaker=self.breaker,
+                                on_retry=on_retry, initial_error=e,
+                                log_fields={"rows": len(sel)},
+                            )
+                        except Exception as e2:
+                            if not ladder or not self.retry_policy.classify(e2):
+                                raise
+                            got, pos = project(sel, degraded_for(sel, pad_to, e2))
+                            fetched = fetch_all(got)
+                    if want_labels:
+                        am_host, sub_host = fetched
+                        docs_of = doc_idx_arr[sel]
+                        whole = np.ones(len(sel), dtype=bool)
+                        if pos.size:
+                            whole[pos] = False
+                            rows = [chunk_rank[int(doc_idx_arr[sel[p]])] for p in pos]
+                            np.add.at(chunk_acc, rows, sub_host)
+                        out[docs_of[whole]] = am_host[: len(sel)][whole]
+                    else:
+                        np.add.at(out, doc_idx_arr[sel], fetched[0][: len(sel)])
+
+        if want_labels and chunk_rank:
+            for i, r in chunk_rank.items():
+                out[i] = int(np.argmax(chunk_acc[r]))
+        if inverse is not None:
+            # Deterministic scatter-back: every duplicate reads its unique
+            # row's result — bit-exact against an undeduped call on
+            # geometry-stable strategies (gather, fused), the reduction-
+            # order class on the matmul ones (hist, hybrid, pallas).
+            out = out[inverse]
+        self.metrics.incr("docs_scored", N_in)
+        REGISTRY.observe("score/retries_per_call", len(call_retries))
+        # The JAX runner starts its roofline cost-gauge thread here, once per
+        # runner: ROADMAP Queue 1 item 7.
+        log_event(
+            _log, "runner.score", docs=N_in, unique=N, chunks=n_chunks,
+            batches=len(plan), trace_id=req_id,
+        )
+        return out
+
+    # -- segmentation (per-cell) path -------------------------------------------
     def segment_cells(
         self, byte_docs: Sequence[bytes], *, cell: int | None = None
     ) -> tuple[list[np.ndarray], list[bytes]]:
@@ -509,14 +1244,12 @@ class BatchRunner:
         Long documents chunk on a cell-aligned stride (the whole-doc path's
         overlap rule rounded so that chunk ownership boundaries land on cell
         boundaries), so every global cell is owned by exactly one chunk and
-        the assembled cells are exact. Cells past a batch's longest owned
-        range are padding and are not copied back. The whole-doc
-        ``score``/``predict_ids`` paths share none of this method's device
-        work.
-
-        Left out of the port on purpose, as in ``score``: duplicate-document
-        folding, dispatch threads, telemetry spans, and the retry / circuit
-        breaker / degradation ladder. A failure of the kernel raises.
+        the assembled cells are exact. Duplicates are dedup'd, batches
+        dispatch under the retry policy and the breaker, and a failure
+        rides the ladder (fused → device gather cells → host gather cells),
+        exact at every rung. Cells past a batch's longest owned range are
+        padding and are not copied back (the JAX runner fetches them, so
+        ``score/fetch_bytes`` counts less here in segment mode).
         """
         cell = int(cell or SEGMENT_CELL)
         if cell < 128 or cell % 128:
@@ -528,7 +1261,21 @@ class BatchRunner:
                 f"segment cell {cell} exceeds the largest length bucket "
                 f"{self.max_chunk}"
             )
+        try:
+            return self._segment_traced(byte_docs, cell)
+        except Exception as e:
+            flightrec.record_crash("segment", e)
+            raise
+
+    def _segment_traced(self, byte_docs, cell: int):
         byte_docs = self.scored_docs(byte_docs)
+        N_in = len(byte_docs)
+        inverse = None
+        if self.dedup and N_in > 1:
+            d = dedup_counted(byte_docs)
+            if d is not None:
+                first_idx, inverse, _ = d
+                byte_docs = [byte_docs[int(i)] for i in first_idx]
         L = self.num_langs
         out: list[np.ndarray] = []
         if not byte_docs:
@@ -579,80 +1326,89 @@ class BatchRunner:
                     limits.append(self.max_chunk)
                     takes.append(n_cells - off)
         limits_arr = np.asarray(limits, dtype=np.int64)
+        plan = self.plan([len(c) for c in chunks])
+        ladder = self._ladder_allowed(segment=True)
 
-        for sel, pad_to in self.plan([len(c) for c in chunks]):
-            batch, lengths, window_limit = self._to_device(
-                [chunks[k] for k in sel], limits_arr[sel], pad_to
-            )
-            cells = self._segment_dispatch_device(batch, lengths, window_limit, cell)
+        def on_retry(attempt_no, delay_s, exc):
+            self.metrics.incr("retries")
+            REGISTRY.incr("score/retries")
+
+        def owned(sel, cells):
             # Cells past the longest owned range of the batch are padding.
-            host = cells[:, : max(takes[k] for k in sel)].cpu().numpy()
-            for r, k in enumerate(sel):
-                off, take = cell_offs[k], takes[k]
-                out[doc_idx[k]][off : off + take] = host[r, :take]
-        return out, byte_docs
+            return cells[:, : max(takes[k] for k in sel)]
 
-    def _execute(self, byte_docs: Sequence[bytes], *, want_labels: bool) -> np.ndarray:
-        byte_docs = self.scored_docs(byte_docs)
-        N = len(byte_docs)
-        L = self.num_langs
-        out = (
-            np.zeros(N, dtype=np.int32) if want_labels
-            else np.zeros((N, L), dtype=np.float32)
-        )
-        if N == 0:
-            return out
+        def build_and_dispatch(sel, pad_to):
+            batch_docs = [chunks[k] for k in sel]
+            limit_np = self._limit_np(limits_arr[sel])
+            with span("score/pack", parent=seg_span, rows=len(sel), pad_to=pad_to):
+                st = self._stage_padded(batch_docs, pad_to, limit_np)
+            with span("score/dispatch", parent=seg_span, rows=len(sel),
+                      pad_to=pad_to) as sp:
+                dev = st.to_device()
+                cells = self._segment_dispatch_device(
+                    dev["batch"], dev["lengths"], dev.get("limit"), cell
+                )
+                sp.fence(cells)
+            return owned(sel, cells)
 
-        # Expand long docs into chunks: (doc index, bytes, owned starts).
-        overlap = max(self.spec.gram_lengths) - 1
-        stride = self.max_chunk - overlap
-        doc_idx: list[int] = []
-        chunks: list[bytes] = []
-        limits: list[int] = []
-        chunk_rank: dict[int, int] = {}  # chunked doc → row of chunk_acc
-        for i, doc in enumerate(byte_docs):
-            if len(doc) <= self.max_chunk:
-                doc_idx.append(i)
-                chunks.append(doc)
-                limits.append(self.max_chunk)  # no-op limit
-                continue
-            chunk_rank[i] = len(chunk_rank)
-            parts = chunk_document(doc, self.max_chunk, overlap)
-            for j, part in enumerate(parts):
-                doc_idx.append(i)
-                chunks.append(part)
-                limits.append(stride if j < len(parts) - 1 else self.max_chunk)
-        doc_idx_arr = np.asarray(doc_idx, dtype=np.int64)
-        limits_arr = np.asarray(limits, dtype=np.int64)
-        chunk_acc = (
-            np.zeros((len(chunk_rank), L), dtype=np.float32)
-            if want_labels and chunk_rank else None
-        )
+        def degraded_for(sel, pad_to, cause):
+            return owned(sel, self._segment_degraded(
+                [chunks[k] for k in sel], limits_arr[sel], pad_to, cell, cause
+            ))
 
-        for sel, pad_to in self.plan([len(c) for c in chunks]):
-            batch, lengths, window_limit = self._to_device(
-                [chunks[k] for k in sel], limits_arr[sel], pad_to
+        def run_one(item):
+            sel, pad_to = item
+            cells = guarded_dispatch(
+                lambda: build_and_dispatch(sel, pad_to),
+                policy=self.retry_policy,
+                site="score/dispatch",
+                breaker=self.breaker if ladder else None,
+                degraded=(lambda cause: degraded_for(sel, pad_to, cause)) if ladder else None,
+                on_retry=on_retry,
+                log_fields={"rows": len(sel), "segment": True},
             )
-            docs_of = doc_idx_arr[sel]
-            if not want_labels:
-                scores = self._scores(batch, lengths, window_limit).cpu().numpy()
-                np.add.at(out, docs_of, scores)
-                continue
-            pos = np.flatnonzero([int(d) in chunk_rank for d in docs_of])
-            if pos.size == 0:
-                out[docs_of] = self._labels(batch, lengths, window_limit).cpu().numpy()
-                continue
-            # A batch holding chunks: argmax on the device for whole docs,
-            # and the chunk rows' scores fetched for the cross-chunk sum.
-            scores = self._scores(batch, lengths, window_limit)
-            am = score_ops.argmax_language(scores).cpu().numpy()
-            sub = scores[torch.from_numpy(pos).to(scores.device)].cpu().numpy()
-            whole = np.ones(len(sel), dtype=bool)
-            whole[pos] = False
-            out[docs_of[whole]] = am[whole]
-            np.add.at(chunk_acc, [chunk_rank[int(docs_of[p])] for p in pos], sub)
+            return sel, pad_to, cells
 
-        if chunk_acc is not None:
-            for i, r in chunk_rank.items():
-                out[i] = int(np.argmax(chunk_acc[r]))
-        return out
+        workers = self.dispatch_workers
+        if workers is None:
+            workers = DISPATCH_WORKERS
+        workers = max(1, min(int(workers), len(plan)))
+        with trace_request(), self.metrics.timer("score_s"), span(
+            "score", docs=N_in, unique=len(byte_docs), batches=len(plan),
+            strategy=self.strategy, segment=True, cell=cell,
+        ) as seg_span:
+            pending = run_ordered(plan, run_one, workers)
+            with span("score/fetch", batches=len(plan)):
+                started = [self._start_fetches([c])[0] for _, _, c in pending]
+                for (sel, pad_to, cells), handle in zip(pending, started):
+                    try:
+                        faults.inject("score/fetch")
+                        host = self._fetch(cells, handle)
+                    except Exception as e:
+                        if not self.retry_policy.classify(e):
+                            raise
+                        try:
+                            host = self.retry_policy.run(
+                                lambda sel=sel, pad_to=pad_to: self._fetch(
+                                    build_and_dispatch(sel, pad_to)
+                                ),
+                                site="score/fetch", breaker=self.breaker,
+                                on_retry=on_retry, initial_error=e,
+                                log_fields={"rows": len(sel)},
+                            )
+                        except Exception as e2:
+                            if not ladder or not self.retry_policy.classify(e2):
+                                raise
+                            host = self._fetch(degraded_for(sel, pad_to, e2))
+                    for r, k in enumerate(sel):
+                        off, take = cell_offs[k], takes[k]
+                        out[doc_idx[k]][off : off + take] = host[r, :take]
+
+        self.metrics.incr("docs_scored", N_in)
+        log_event(
+            _log, "runner.segment", docs=N_in, unique=len(byte_docs),
+            chunks=len(chunks), batches=len(plan), cell=cell,
+        )
+        if inverse is not None:
+            return [out[int(j)] for j in inverse], [byte_docs[int(j)] for j in inverse]
+        return out, list(byte_docs)

@@ -1,0 +1,329 @@
+"""One audited config module for every ``LANGDETECT_*`` knob.
+
+Port of ``spark_languagedetector_tpu.exec.config``. The table holds the
+knobs a module of the port reads, under the JAX package's names, env
+spellings, types and defaults, so one environment configures both packages
+alike. The JAX package's other knobs (serving, fleet, zoo, scale,
+cold-start, exporter, multi-process) are listed in ``ROADMAP.md`` against
+the work that will bring their readers.
+
+Every knob resolves here, once, with type validation and a single
+precedence rule:
+
+    explicit ctor/param value  >  env var  >  tuning profile  >  default
+
+The tuning profile (:mod:`.profile`, pointed at by
+``LANGDETECT_TUNING_PROFILE``) supplies *measured* defaults for the knobs
+marked tunable; the deprecation table below names the hand-set knobs it
+supersedes. An env var still wins over a profile value (operators pin what
+must not drift), and :func:`effective_config` reports every knob, its value
+and where the value came from.
+
+Resolution is cheap (one dict lookup + env read per knob) and un-cached on
+purpose: tests flip env vars and expect the next construction to see them.
+Only the profile file read is cached (per path + mtime);
+:func:`reload_profile` drops the cache.
+"""
+
+from __future__ import annotations
+
+import os
+from dataclasses import dataclass
+
+from ..ops.encoding import DEFAULT_LENGTH_BUCKETS
+from ..utils.logging import get_logger, log_event
+from .profile import TuningProfile
+
+_log = get_logger("exec.config")
+
+PROFILE_ENV = "LANGDETECT_TUNING_PROFILE"
+
+
+@dataclass(frozen=True)
+class Knob:
+    """One config knob: canonical name, env spelling, type, default."""
+
+    name: str
+    env: str | None
+    kind: str  # 'int' | 'float' | 'bool' | 'str' | 'int_tuple'
+    default: object
+    help: str
+    # Resolvable from the active tuning profile's `tuned` dict (same name).
+    tunable: bool = False
+    positive: bool = False
+
+
+def _knobs(*knobs: Knob) -> dict[str, Knob]:
+    table = {}
+    for k in knobs:
+        if k.name in table:
+            raise ValueError(f"duplicate knob {k.name}")
+        table[k.name] = k
+    return table
+
+
+# One row per env var: the authority on names, types and defaults. The
+# modules that read a knob resolve it through here.
+KNOBS: dict[str, Knob] = _knobs(
+    # --- execution core (tunable: a tuning profile may set these) --------
+    Knob("length_buckets", "LANGDETECT_LENGTH_BUCKETS", "int_tuple",
+         DEFAULT_LENGTH_BUCKETS,
+         "padded-length bucket lattice (comma-separated, ascending, "
+         "multiples of 128)", tunable=True),
+    Knob("batch_bytes", "LANGDETECT_BATCH_BYTES", "int", 8 << 20,
+         "byte budget per scoring micro-batch transfer", tunable=True,
+         positive=True),
+    Knob("fit_batch_bytes", "LANGDETECT_FIT_BATCH_BYTES", "int", 8 << 20,
+         "byte budget per fit micro-batch transfer", tunable=True,
+         positive=True),
+    Knob("fit_batch_rows", "LANGDETECT_FIT_BATCH_ROWS", "int", None,
+         "fixed fit micro-batch rows (unset: adaptive under the byte "
+         "budget)", positive=True),
+    Knob("dispatch_workers", "LANGDETECT_DISPATCH_WORKERS", "int", None,
+         "concurrent dispatch threads for the batch path (unset: 1)",
+         positive=True),
+    Knob("pack_threads", "LANGDETECT_PACK_THREADS", "int", None,
+         "native packer thread count (unset: auto)", positive=True),
+    Knob("device_encode", "LANGDETECT_DEVICE_ENCODE", "bool", False,
+         "device-side batch encode: ship raw bytes + int32 offsets and "
+         "rebuild the padded batch on the device instead of host-packing",
+         tunable=True),
+    # --- redundancy elimination -------------------------------------------
+    Knob("dedup", "LANGDETECT_DEDUP", "bool", True,
+         "in-flight content dedup: unique rows are copied and scored, "
+         "duplicates scatter back from the fetched result"),
+    # --- resilience -------------------------------------------------------
+    Knob("retry_max_attempts", "LANGDETECT_RETRY_MAX_ATTEMPTS", "int", 2,
+         "retry attempts incl. the first try"),
+    Knob("retry_base_delay_s", "LANGDETECT_RETRY_BASE_DELAY_S", "float",
+         0.05, "first backoff delay"),
+    Knob("retry_max_delay_s", "LANGDETECT_RETRY_MAX_DELAY_S", "float", 2.0,
+         "backoff ceiling"),
+    Knob("retry_multiplier", "LANGDETECT_RETRY_MULTIPLIER", "float", 2.0,
+         "backoff growth factor"),
+    Knob("retry_jitter", "LANGDETECT_RETRY_JITTER", "float", 0.5,
+         "downward jitter fraction per delay"),
+    Knob("retry_seed", "LANGDETECT_RETRY_SEED", "int", 0,
+         "deterministic jitter seed"),
+    Knob("retry_attempt_deadline_s", "LANGDETECT_RETRY_ATTEMPT_DEADLINE_S",
+         "float", None, "post-hoc per-attempt deadline"),
+    Knob("breaker_threshold", "LANGDETECT_BREAKER_THRESHOLD", "int", 5,
+         "consecutive retryable failures that open the breaker"),
+    Knob("breaker_cooldown_s", "LANGDETECT_BREAKER_COOLDOWN_S", "float",
+         5.0, "open -> half-open cooldown"),
+    Knob("breaker_probes", "LANGDETECT_BREAKER_PROBES", "int", 1,
+         "half-open probe successes required to close"),
+    Knob("degraded", "LANGDETECT_DEGRADED", "bool", True,
+         "degraded-ladder fallback on retryable exhaustion"),
+    Knob("fault_plan", "LANGDETECT_FAULT_PLAN", "str", None,
+         "chaos fault plan spec (tests/drills only)"),
+    # --- telemetry --------------------------------------------------------
+    Knob("telemetry_fence", "LANGDETECT_TELEMETRY_FENCE", "bool", False,
+         "fence spans on device completion"),
+    Knob("flight_recorder", "LANGDETECT_FLIGHT_RECORDER", "str", None,
+         "crash ring-buffer dump dir (1: tmpdir)"),
+    Knob("flight_recorder_events", "LANGDETECT_FLIGHT_RECORDER_EVENTS",
+         "int", 2048, "crash ring capacity", positive=True),
+    Knob("loglevel", "LANGDETECT_TPU_LOGLEVEL", "str", None,
+         "package log level"),
+    # --- tuning profile ---------------------------------------------------
+    Knob("tuning_profile", PROFILE_ENV, "str", None,
+         "path to a tuning profile JSON (exec.profile)"),
+)
+
+# Deprecation table: hand-set env knobs the autotuner supersedes. The old
+# spelling keeps working (and keeps winning over the profile — explicit
+# beats measured), but deployments should drop it and ship a profile: the
+# tuned default is measured per deployment instead of guessed once.
+# old env name -> tuned profile field that replaces it
+DEPRECATED_ENV: dict[str, str] = {
+    "LANGDETECT_LENGTH_BUCKETS": "length_buckets",
+    "LANGDETECT_BATCH_BYTES": "batch_bytes",
+    "LANGDETECT_FIT_BATCH_BYTES": "fit_batch_bytes",
+}
+
+
+# ------------------------------------------------------------- profile ------
+_profile_cache: tuple[str, float, TuningProfile] | None = None
+_profile_warned: set[str] = set()
+
+
+def reload_profile() -> None:
+    """Drop the cached profile (tests / the tuner's A-B smoke)."""
+    global _profile_cache
+    _profile_cache = None
+
+
+def active_profile(env=os.environ) -> TuningProfile | None:
+    """The tuning profile ``LANGDETECT_TUNING_PROFILE`` names, or None.
+
+    Cached per (path, mtime). A missing or invalid profile file is a
+    loud failure: startup with a half-rolled-out profile must not
+    silently run untuned."""
+    global _profile_cache
+    path = (env.get(PROFILE_ENV) or "").strip()
+    if not path:
+        return None
+    try:
+        mtime = os.stat(path).st_mtime
+    except OSError as e:
+        raise ValueError(
+            f"{PROFILE_ENV}={path!r} names an unreadable profile: {e}"
+        ) from e
+    cached = _profile_cache
+    if cached is not None and cached[0] == path and cached[1] == mtime:
+        return cached[2]
+    prof = TuningProfile.load(path)
+    _profile_cache = (path, mtime, prof)
+    log_event(
+        _log, "exec.config.profile_loaded", path=path,
+        version=prof.version, fields=sorted(prof.tuned),
+    )
+    return prof
+
+
+# ----------------------------------------------------------- resolution -----
+def _parse(knob: Knob, raw: str):
+    try:
+        if knob.kind == "int":
+            value = int(raw)
+        elif knob.kind == "float":
+            value = float(raw)
+        elif knob.kind == "bool":
+            low = raw.strip().lower()
+            if low in ("1", "true", "yes", "on"):
+                return True
+            if low in ("0", "false", "no", "off"):
+                return False
+            raise ValueError(raw)
+        elif knob.kind == "int_tuple":
+            value = tuple(
+                int(p) for p in raw.replace(" ", "").split(",") if p
+            )
+            if not value or list(value) != sorted(set(value)) or min(value) < 1:
+                raise ValueError(raw)
+            # Same constraint the tuning-profile validator enforces
+            # (exec.profile): bucket widths are 128-aligned for the lane
+            # tiling and the ragged-chunk transfer form. Env and profile
+            # must not disagree on what a legal lattice is.
+            if any(x % 128 for x in value):
+                raise ValueError(
+                    f"{knob.env} values must be multiples of 128, got {raw!r}"
+                )
+        else:  # str
+            return raw
+    except ValueError as e:
+        kind = {"int": "an integer", "float": "a number",
+                "bool": "a boolean", "int_tuple":
+                "a comma-separated ascending list of positive integers"}[
+                    knob.kind]
+        raise ValueError(f"{knob.env} must be {kind}, got {raw!r}") from e
+    if knob.positive and value is not None and value <= 0:
+        raise ValueError(f"{knob.env} must be positive, got {value}")
+    return value
+
+
+def resolve_with_source(
+    name: str, explicit=None, env=os.environ
+) -> tuple[object, str]:
+    """(value, source) for one knob; source is ``explicit`` / ``env`` /
+    ``profile`` / ``default``. Precedence: explicit > env > tuning profile
+    > built-in default. Raises ValueError on a malformed env value or an
+    unknown knob — a typo must never silently mean "default"."""
+    knob = KNOBS.get(name)
+    if knob is None:
+        raise ValueError(
+            f"unknown config knob {name!r}; expected one of {sorted(KNOBS)}"
+        )
+    if explicit is not None:
+        return explicit, "explicit"
+    raw = env.get(knob.env) if knob.env else None
+    if raw is not None and raw != "":
+        value = _parse(knob, raw)
+        if knob.env in DEPRECATED_ENV and knob.env not in _profile_warned:
+            prof = active_profile(env)
+            if prof is not None and prof.get(DEPRECATED_ENV[knob.env]) is not None:
+                _profile_warned.add(knob.env)
+                log_event(
+                    _log, "exec.config.env_overrides_profile",
+                    env=knob.env, value=raw,
+                    tuned=DEPRECATED_ENV[knob.env],
+                    profile=prof.version,
+                )
+        return value, "env"
+    if knob.tunable:
+        prof = active_profile(env)
+        if prof is not None:
+            tuned = prof.get(name)
+            if tuned is not None:
+                return tuned, "profile"
+    return knob.default, "default"
+
+
+def resolve(name: str, explicit=None, env=os.environ):
+    """The knob's effective value (see :func:`resolve_with_source`)."""
+    return resolve_with_source(name, explicit, env)[0]
+
+
+def raw_env(name: str, env=os.environ) -> str | None:
+    """The raw, unparsed env string behind a knob (diagnostics only).
+
+    For error paths that want to *show* what the operator typed without
+    re-spelling the env-var name at the call site — the one place a
+    module outside this file may touch a knob's environment string.
+    """
+    knob = KNOBS.get(name)
+    if knob is None:
+        raise ValueError(
+            f"unknown config knob {name!r}; expected one of {sorted(KNOBS)}"
+        )
+    return env.get(knob.env) if knob.env else None
+
+
+def effective_config(env=os.environ) -> dict:
+    """Every knob's live value + provenance — the ``/varz`` and bench
+    audit block. Malformed env values surface as ``"error"`` entries
+    instead of raising: an observability endpoint must render the
+    misconfiguration, not 500 on it."""
+    prof = None
+    prof_error = None
+    try:
+        prof = active_profile(env)
+    except ValueError as e:
+        prof_error = str(e)
+    out: dict = {
+        "profile": None if prof is None else {
+            "version": prof.version,
+            "created": prof.created,
+            "tuned": {
+                k: (list(v) if isinstance(v, tuple) else v)
+                for k, v in prof.tuned.items()
+            },
+        },
+        "deprecated_env": dict(DEPRECATED_ENV),
+        "knobs": {},
+    }
+    if prof_error:
+        out["profile_error"] = prof_error
+    for name in sorted(KNOBS):
+        try:
+            value, source = resolve_with_source(name, env=env)
+        except ValueError as e:
+            out["knobs"][name] = {"error": str(e), "env": KNOBS[name].env}
+            continue
+        entry: dict = {
+            "value": list(value) if isinstance(value, tuple) else value,
+            "source": source,
+            "env": KNOBS[name].env,
+        }
+        out["knobs"][name] = entry
+    return out
+
+
+# The logging root's level was set pre-config (bootstrap: this module's
+# own imports emit through it, so the knob table cannot exist yet when the
+# root initializes). Re-resolve it through the table now that it exists, so
+# the live level and effective_config() cannot disagree.
+from ..utils.logging import sync_level_from_config as _sync_level  # noqa: E402
+
+_sync_level(resolve)

@@ -29,6 +29,19 @@ from pathlib import Path
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 
 
+class KernelBuildError(RuntimeError):
+    """A kernel could not be built or loaded: no ``nvcc``, a failed
+    compile, or an ``OSError`` / missing symbol while writing the build
+    directory, starting the compiler or loading the library. Not retryable:
+    the runner's retry policy and degradation ladder let it through, since
+    replaying cannot make it build."""
+
+
+class KernelLaunchError(RuntimeError):
+    """A kernel's launch returned a CUDA error. Not retryable, for the same
+    reason, and because a CUDA error is sticky for the context."""
+
+
 def _build_dir() -> Path:
     """``build/kernels/`` of the source checkout holding the package, else
     ``$XDG_CACHE_HOME`` (default ``~/.cache``) for an installed package."""
@@ -60,7 +73,7 @@ def nvcc_path() -> str:
     for c in candidates:
         if c.is_file():
             return str(c)
-    raise RuntimeError(
+    raise KernelBuildError(
         "nvcc not found (looked in $CUDA_HOME/bin, PATH, /usr/local/cuda/bin); "
         "the CUDA kernels are built from csrc/ on first use"
     )
@@ -97,16 +110,23 @@ class CudaKernel:
         return [nvcc_path(), *NVCC_FLAGS, "-o", str(out), str(self.source)]
 
     def library(self) -> ctypes.CDLL:
-        """The loaded library, built first if needed (raises on failure)."""
+        """The loaded library, built first if needed. Every failure on the
+        way raises :class:`KernelBuildError`."""
         with self._lock:
             if self._lib is None:
-                if not self.library_path.is_file():
-                    build_all([self])
-                lib = ctypes.CDLL(str(self.library_path))
-                fn = getattr(lib, self.symbol)
+                try:
+                    path = self.library_path
+                    if not path.is_file():
+                        build_all([self])
+                    lib = ctypes.CDLL(str(path))
+                    fn = getattr(lib, self.symbol)
+                    err = lib.kernel_error_string
+                except KernelBuildError:
+                    raise
+                except (OSError, AttributeError) as e:
+                    raise KernelBuildError(f"{self.name}: cannot load its library: {e!r}") from e
                 fn.argtypes = self.argtypes
                 fn.restype = self.restype
-                err = lib.kernel_error_string
                 err.argtypes = [ctypes.c_int]
                 err.restype = ctypes.c_char_p
                 self._lib = lib
@@ -119,7 +139,7 @@ class CudaKernel:
         rc = getattr(lib, self.symbol)(*args)
         if rc != 0:
             msg = lib.kernel_error_string(rc).decode()
-            raise RuntimeError(f"{self.name} launch failed: CUDA error {rc} ({msg})")
+            raise KernelLaunchError(f"{self.name} launch failed: CUDA error {rc} ({msg})")
         self.launches += 1
 
 
@@ -182,33 +202,41 @@ def build_all(
     """Compile the kernels' sources (by default every kernel of the port),
     one ``nvcc`` process per source, all running at once. Returns (seconds,
     compiler output) per kernel built; raises with the compiler's output if
-    any build fails. Already-built libraries are skipped unless ``force``."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    any build fails. Already-built libraries are skipped unless ``force``.
+    Every failure raises :class:`KernelBuildError`; compilers already
+    started are waited for first."""
     procs = []
-    for k in kernels:
-        out = k.library_path
-        if out.is_file() and not force:
-            continue
-        tmp = out.with_suffix(f".tmp{os.getpid()}.so")
-        procs.append(
-            (
-                k, out, tmp, time.perf_counter(),
-                subprocess.Popen(
-                    k.build_command(tmp),
-                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                ),
-            )
-        )
     built: dict[str, tuple[float, str]] = {}
     failures = []
+    try:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        for k in kernels:
+            out = k.library_path
+            if out.is_file() and not force:
+                continue
+            tmp = out.with_suffix(f".tmp{os.getpid()}.so")
+            procs.append(
+                (
+                    k, out, tmp, time.perf_counter(),
+                    subprocess.Popen(
+                        k.build_command(tmp),
+                        stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                    ),
+                )
+            )
+    except (OSError, KernelBuildError) as e:
+        failures.append(f"cannot start the build: {e}")
     for k, out, tmp, t0, p in procs:
         log = p.communicate()[0].decode(errors="replace")
         built[k.name] = (time.perf_counter() - t0, log)
         if p.returncode != 0:
             failures.append(f"{k.name} ({k.source.name}):\n{log}")
             tmp.unlink(missing_ok=True)
-        else:
+            continue
+        try:
             os.replace(tmp, out)
+        except OSError as e:
+            failures.append(f"{k.name}: cannot move its library into place: {e!r}")
     if failures:
-        raise RuntimeError("nvcc failed for\n" + "\n".join(failures))
+        raise KernelBuildError("kernel build failed for\n" + "\n".join(failures))
     return built

@@ -19,7 +19,7 @@ package's):
     }
 
 The JAX package's ``segment/*`` telemetry counters and its ``segment/merge``
-span are not in the port (it has no telemetry registry yet).
+span are not in the port yet (ROADMAP Queue 1 item 7).
 """
 
 from __future__ import annotations

@@ -8,6 +8,11 @@
   imported at all, calibrates a model and transforms in segment mode, fits
   with ``fitBackend="device"``, saves and loads the model and a pipeline
   (whose metadata names the JAX package's classes, as data) and transforms.
+* A third subprocess, with ``jax`` unimportable as well, transforms through
+  the execution layer: the ragged form, dedup, two dispatch workers and a
+  fault plan (a dispatch fault replayed, a fetch fault replayed, a wire
+  build fault down the ladder), and maps no packer library of the JAX
+  package (its own comes from ``build/native/``).
 * An AST scan finds no import of either anywhere in the port, ``segment/``
   included, nor in ``chip_smoke.py``, and no ``importlib`` in the port's
   pipeline loader, which looks stage classes up in a fixed table.
@@ -123,6 +128,66 @@ def test_segment_mode_runs_with_jax_unimportable():
             import jax
         except ImportError:
             print("isolated")
+        """
+    )
+    res = subprocess.run(
+        [sys.executable, "-c", script],
+        cwd=PORT_DIR.parent, capture_output=True, text=True, timeout=120,
+    )
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("isolated")
+
+
+def test_execution_layer_runs_with_jax_unimportable():
+    script = textwrap.dedent(
+        """
+        import sys
+        for name in ("jax", "jaxlib", "spark_languagedetector_tpu"):
+            sys.modules[name] = None  # any import of it raises ImportError
+        import numpy as np
+        from spark_languagedetector_tpu_torch import LanguageDetector, Table, native
+        from spark_languagedetector_tpu_torch.api import runner as runner_mod
+        from spark_languagedetector_tpu_torch.resilience import faults
+        from spark_languagedetector_tpu_torch.resilience.faults import FaultPlan
+        from spark_languagedetector_tpu_torch.telemetry import REGISTRY
+        rng = np.random.default_rng(0)
+        words = {"en": ["the", "dog", "and", "cat", "with"],
+                 "de": ["der", "hund", "und", "katze", "mit"]}
+        texts, labels = [], []
+        for i in range(120):
+            lang = ("en", "de")[i % 2]
+            texts.append(" ".join(rng.choice(words[lang], int(rng.integers(3, 150)))))
+            labels.append(lang)
+        det = LanguageDetector(["en", "de"], [1, 2, 3], 50, device="cpu")
+        model = det.fit(Table({"lang": labels, "fulltext": texts}))
+        unpacks = []
+        real = runner_mod.unpack_ragged
+        runner_mod.unpack_ragged = lambda *a: unpacks.append(1) or real(*a)
+        docs = texts + texts[:40]  # duplicates
+        r = model.runner
+        r.length_buckets, r.batch_size, r.dispatch_workers = (128, 2048), 64, 2
+        r.retry_policy = type(r.retry_policy)(max_attempts=2, base_delay_s=0.0)
+        want = model.transform(Table({"fulltext": docs})).column("lang").tolist()
+        assert want == labels + labels[:40], want
+        assert unpacks, "the ragged form never ran"
+        counters = REGISTRY.snapshot()["counters"]
+        assert counters["dedup/rows_in"] == 160 and counters["dedup/rows_unique"] == 120
+        plan = "seed=1;score/dispatch:error@1;score/fetch:error@2;score/pack:error@1-9"
+        with faults.plan_scope(FaultPlan.parse(plan)):
+            got = model.transform(Table({"fulltext": docs})).column("lang").tolist()
+            r.device_encode = True
+            wire = model.transform(Table({"fulltext": docs})).column("lang").tolist()
+        assert got == want and wire == want
+        counters = REGISTRY.snapshot()["counters"]
+        assert counters["score/retries"] >= 2 and counters["resilience/degraded_batches"] >= 1
+        assert native.available()
+        maps = open("/proc/self/maps").read()
+        assert str(native.library_path()) in maps
+        assert "spark_languagedetector_tpu/native" not in maps
+        bad = sorted(m for m, mod in sys.modules.items() if mod is not None
+                     and m.split(".")[0] in ("jax", "jaxlib", "spark_languagedetector_tpu"))
+        assert not bad, bad
+        print("isolated")
         """
     )
     res = subprocess.run(
