@@ -105,6 +105,27 @@ Phases, one line or more each; any failure exits non-zero before the verdict:
    warm docs/s over three runs, the device's busy share, the H2D bytes per
    document of each form and the ``score/pack``/``dispatch``/``fetch`` wall
    split read from the telemetry registry.
+15. serve    — online serving on the card. ``fused_detect`` scores 64
+   documents alone, in a batch of 64 and in the 4,096-row batch bit for
+   bit. A copy of the config-5 model is installed in a ``ModelRegistry``
+   behind ``ServingServer(port=0)`` (batcher ``max_wait_ms=5,
+   max_rows=256``); eight ``ServeClient`` threads send 16 rounds of 8
+   evaluation documents each, mixing /score, /detect and
+   /detect?mode=segment, while one client swaps over /admin/swap to a
+   config-5 model refitted with profile size 300 and saved to disk, then
+   rolls back. Every answer equals the direct runner of the version that
+   served it, bit for bit; none is dropped; dispatches coalesce requests;
+   ``fused_detect`` and ``fused_segment`` launch; device memory after the
+   two swaps is back within one staging ring of before. Then a short
+   profiled run (the device's busy share) and a burst of 32 concurrent
+   bulk requests against ``max_queue_rows=16`` (answered or shed with 503,
+   at least one shed). Config 3 (hybrid) runs the shorter form (four
+   clients, eight rounds, the burst): ``row_hist`` and ``bigram_hist``
+   launch, answers equal the direct runner bit for bit or, where the f64
+   matmul's order moved, in the JAX package's matmul-strategy class
+   (labels and spans exact, scores ``rtol=1e-4, atol=1e-5``; said so).
+   Printed: requests/s and docs/s under load, ``serve/total_s`` p50/p99,
+   ``serve/queue_wait_s`` p99, the swap's and rollback's milliseconds.
 
 Each phase prints its seconds. Phase 2 also builds the native packer
 (``native/*.cpp`` with g++) and fails if it cannot.
@@ -2428,6 +2449,335 @@ def phase_runner(torch, dev, model5, texts5, ids5, model3, case3: FitCase, smi_l
                 f"transform ({smi_line})")
 
 
+SERVE_CLIENTS, SERVE_ROUNDS, SERVE_DOCS = 8, 16, 8  # config 5 under load (clients x rounds x docs)
+SERVE3_CLIENTS, SERVE3_ROUNDS = 4, 8  # config 3, the shorter run
+SERVE_BURST = 32  # concurrent bulk requests of SERVE_DOCS each against max_queue_rows=16
+SERVE_KINDS = ("score", "detect", "segment")
+
+
+def serve_load(ServeClient, address, texts, clients: int, rounds: int, actions=None):
+    """``clients`` threads, each sending ``rounds`` requests of SERVE_DOCS
+    distinct texts to the server at ``address``, the kind cycling through
+    /score, /detect and /detect?mode=segment. ``actions`` maps (client,
+    round) to a callable run by that client before that request (the swap
+    and rollback). Returns the answered requests as (kind, texts, answer,
+    meta), the wall seconds and each action's milliseconds; any error
+    fails the phase (a dropped response)."""
+    import threading
+
+    records, errors, action_ms = [], [], {}
+    lock = threading.Lock()
+    barrier = threading.Barrier(clients)
+
+    def work(c):
+        client = ServeClient(*address)
+        barrier.wait(timeout=60)
+        for r in range(rounds):
+            if actions and (c, r) in actions:
+                name, act = actions[c, r]
+                t0 = time.perf_counter()
+                try:
+                    act(client)
+                except Exception as e:
+                    errors.append(f"{name}: {e!r}")
+                    return
+                action_ms[name] = (time.perf_counter() - t0) * 1e3
+            kind = SERVE_KINDS[(c + r) % len(SERVE_KINDS)]
+            start = ((c * rounds + r) * SERVE_DOCS) % (len(texts) - SERVE_DOCS)
+            sub = texts[start:start + SERVE_DOCS]
+            try:
+                if kind == "score":
+                    answer, meta = client.score(sub)
+                elif kind == "detect":
+                    answer, meta = client.detect(sub)
+                else:
+                    answer, meta = client.segment(sub)
+            except Exception as e:
+                errors.append(f"client {c} round {r} {kind}: {e!r}")
+                return
+            with lock:
+                records.append((kind, sub, answer, meta))
+
+    threads = [threading.Thread(target=work, args=(c,)) for c in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    if errors:
+        fail(f"serve: {len(errors)} requests not answered: {errors[:3]}")
+    if len(records) != clients * rounds:
+        fail(f"serve: {clients * rounds - len(records)} responses dropped")
+    return records, wall, action_ms
+
+
+def serve_check(what: str, records, refs: dict, exact: bool) -> str:
+    """Every answered request against the direct runner of the version that
+    served it (``refs``: version -> model whose runner and params are the
+    reference), the request's own documents scored alone. ``exact``: bit
+    for bit; else labels and segment spans exact, scores within the JAX
+    package's matmul-strategy serving class (rtol=1e-4, atol=1e-5)."""
+    from spark_languagedetector_tpu_torch.segment import SegmentOptions, segment_documents
+
+    worst, inexact = 0.0, 0
+    for kind, sub, answer, meta in records:
+        model = refs[meta["version"]]
+        runner, docs = model.runner, [t.encode() for t in sub]
+        if kind == "score":
+            ref = runner.score(docs)
+            if not np.array_equal(answer, ref):
+                inexact += 1
+                worst = max(worst, float(np.abs(answer - ref).max()))
+                if exact or not np.allclose(answer, ref, rtol=1e-4, atol=1e-5):
+                    fail(f"{what}: /score answer of {meta['version']} differs from its direct "
+                         f"runner (max abs {float(np.abs(answer - ref).max()):.3g})")
+        elif kind == "detect":
+            names = model.profile.languages
+            ref = [names[i] for i in runner.predict_ids(docs)]
+            if answer != ref:
+                fail(f"{what}: /detect labels of {meta['version']} differ from its direct "
+                     f"runner's ({sum(a != b for a, b in zip(answer, ref))} of {len(ref)})")
+        else:
+            ref = segment_documents(
+                runner, docs, model.profile.languages, calibration=model.calibration,
+                options=SegmentOptions(top_k=int(model.get("topK")),
+                                       reject_threshold=float(model.get("rejectThreshold"))))
+            if answer != ref:
+                inexact += 1
+                spans = [[(s["start"], s["end"], s["lang"]) for s in r["spans"]] for r in ref]
+                got = [[(s["start"], s["end"], s["lang"]) for s in r["spans"]] for r in answer]
+                if exact or spans != got or [r["label"] for r in ref] != [
+                        r["label"] for r in answer]:
+                    fail(f"{what}: segment answer of {meta['version']} differs from its direct "
+                         "runner's")
+    if not inexact:
+        return "bit for bit"
+    return (f"{inexact} answers not bit-identical (max abs {worst:.3g}), all within the "
+            "matmul-strategy class: labels and spans exact, scores rtol=1e-4, atol=1e-5")
+
+
+def serve_busy_share(torch, run) -> str:
+    """The device's busy share over ``run()`` (torch.profiler, CUDA activity
+    only, kernels of every thread), or "not measured"."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    busy_ms = sum(e.self_device_time_total / 1e3 for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA)
+    if busy_ms <= 0:
+        return "device busy share not measured (the profiler recorded no device activity)"
+    return f"device busy {busy_ms:.1f} ms of {wall_ms:.0f} ms = {busy_ms / wall_ms:.1%}"
+
+
+def serve_burst(ServeClient, ServeHTTPError, server, texts) -> tuple[int, int]:
+    """SERVE_BURST concurrent bulk requests against max_queue_rows=16:
+    every one is answered, either 200 or an explicit 503 shed with
+    Retry-After. Returns (answered, shed)."""
+    import threading
+
+    server.batcher.max_queue_rows = 16
+    outcomes, lock = [], threading.Lock()
+    barrier = threading.Barrier(SERVE_BURST)
+
+    def work(i):
+        client = ServeClient(*server.address)
+        sub = texts[i * SERVE_DOCS:(i + 1) * SERVE_DOCS]
+        barrier.wait(timeout=60)
+        try:
+            client.detect(sub, priority="bulk")
+            out = "ok"
+        except ServeHTTPError as e:
+            out = "shed" if e.status == 503 and e.shed and e.retry_after_s > 0 else repr(e)
+        except Exception as e:
+            out = repr(e)
+        with lock:
+            outcomes.append(out)
+
+    threads = [threading.Thread(target=work, args=(i,)) for i in range(SERVE_BURST)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    server.batcher.max_queue_rows = 4096
+    bad = [o for o in outcomes if o not in ("ok", "shed")]
+    if bad or len(outcomes) != SERVE_BURST:
+        fail(f"serve burst: {SERVE_BURST - len(outcomes)} dropped, errors {bad[:3]}")
+    return outcomes.count("ok"), outcomes.count("shed")
+
+
+def serve_stats(REGISTRY) -> str:
+    h = REGISTRY.snapshot()["histograms"]
+    tot, wait, rows = h["serve/total_s"], h["serve/queue_wait_s"], h["serve/rows_per_dispatch"]
+    reqs = h["serve/requests_per_dispatch"]
+    return (f"serve/total_s p50 {tot['p50'] * 1e3:.2f} ms, p99 {tot['p99'] * 1e3:.2f} ms; "
+            f"serve/queue_wait_s p99 {wait['p99'] * 1e3:.2f} ms; mean {rows['mean']:.2f} rows "
+            f"and {reqs['mean']:.2f} requests per dispatch over {rows['count']} dispatches")
+
+
+def serve_split(REGISTRY, wall: float) -> str:
+    """Host-clock span totals of a serve run beside its wall: the
+    dispatcher's time (``serve/dispatch``) and, nested in it, the runner's
+    ``score`` span (``serve/dispatch/score``; ``segment_cells`` records one
+    too) and the rest (the runner's work before its span, the segment
+    decode on the host, the cache)."""
+    stages = REGISTRY.stage_summary()
+    tot = {p: stages.get("serve/dispatch/" * (p != "serve/dispatch") + p, {}).get("total_s", 0.0)
+           for p in ("serve/dispatch", "score", "score/pack", "score/dispatch", "score/fetch")}
+    disp = REGISTRY.snapshot()["histograms"]["serve/dispatch_s"]
+    return (f"dispatcher busy {tot['serve/dispatch']:.3f} s of the {wall:.2f} s wall "
+            f"({tot['serve/dispatch'] / wall:.0%}); inside it the runner's score span "
+            f"{tot['score']:.3f} s (pack {tot['score/pack']:.3f}, dispatch "
+            f"{tot['score/dispatch']:.3f}, fetch {tot['score/fetch']:.3f}), the rest "
+            f"{tot['serve/dispatch'] - tot['score']:.3f} s; serve/dispatch_s p50 "
+            f"{disp['p50'] * 1e3:.2f} ms, p99 {disp['p99'] * 1e3:.2f} ms")
+
+
+def phase_serve(torch, dev, model5, texts5, case5: FitCase, model3, case3: FitCase,
+                smi_line) -> None:
+    """Online serving on the card (phase 15 of the module docstring)."""
+    import gc
+    import tempfile
+
+    from spark_languagedetector_tpu_torch import LanguageDetectorModel
+    from spark_languagedetector_tpu_torch.serve import (
+        ModelRegistry, ServeClient, ServeHTTPError, ServingServer)
+    from spark_languagedetector_tpu_torch.telemetry import REGISTRY
+
+    # 1. fused_detect does not depend on the batch around a document: one
+    # document alone, inside 64, and inside the 4,096-row batch.
+    r5 = model5.runner
+    docs = [t.encode() for t in texts5[:4096]]
+    s64, l64 = r5.score(docs[:64]), r5.predict_ids(docs[:64])
+    solo = np.concatenate([r5.score([d]) for d in docs[:64]])
+    solo_ids = np.concatenate([r5.predict_ids([d]) for d in docs[:64]])
+    s4096, l4096 = r5.score(docs)[:64], r5.predict_ids(docs)[:64]
+    _same("fused_detect scores: alone vs in a batch of 64", solo, s64)
+    _same("fused_detect scores: in 64 vs in 4,096", s4096, s64)
+    _same("fused_detect ids: alone / 64 / 4,096", np.stack([solo_ids, l4096]),
+          np.stack([l64, l64]))
+    say("serve", f"fused_detect: 64 documents scored alone, in a batch of 64 and in "
+        f"4,096 ({len(r5.plan([len(d) for d in docs]))} micro-batches): f32 scores and ids "
+        "bit for bit")
+
+    with tempfile.TemporaryDirectory(prefix="serve_smoke_") as tmp:
+        # 2. The swap target: a second config-5 model, profile size 300.
+        t0 = time.perf_counter()
+        m300 = case5.det.copy({"languageProfileSize": 300, "fitBackend": "device"}).fit(
+            case5.table)
+        path300 = f"{tmp}/c5_p300"
+        m300.save(path300)
+        ref300 = LanguageDetectorModel.load(path300, device=str(dev))
+        ref300.runner.score(docs[:8])
+        say("serve", f"swap target: config 5 refitted with profile 300 ({m300.profile.num_grams} "
+            f"grams) and saved in {time.perf_counter() - t0:.1f}s")
+        del m300
+
+        # 3. Config 5 behind the HTTP server, eight clients, a swap and a
+        # rollback over HTTP mid-run. The registry serves a copy, so the
+        # runner it releases is the only one of its version.
+        registry = ModelRegistry(device=str(dev))
+        t0 = time.perf_counter()
+        registry.install(model5.copy())
+        say("serve", f"registry: v1 installed and prewarmed in {time.perf_counter() - t0:.2f}s "
+            f"(kernel libraries loaded: {[k.name for k in registry.peek().runner.kernels()]})")
+        with ServingServer(registry, port=0, max_wait_ms=5, max_rows=256) as server:
+            texts = texts5[:2000]
+            warm = ServeClient(*server.address)
+            warm.score(texts5[5000:5008])
+            warm.detect(texts5[5008:5016])
+            warm.segment(texts5[5016:5024])
+            torch.cuda.synchronize()
+            gc.collect()
+            mem_before = torch.cuda.memory_allocated(dev)
+            ring = registry.peek().runner._staging.pinned_bytes
+            REGISTRY.reset()
+            reset_launches()
+            actions = {(0, 5): ("swap", lambda c: c.swap(path300)),
+                       (0, 11): ("rollback", lambda c: c.rollback())}
+            records, wall, action_ms = serve_load(ServeClient, server.address, texts,
+                                                  SERVE_CLIENTS, SERVE_ROUNDS, actions)
+            launches = read_launches()
+            stats = serve_stats(REGISTRY)
+            split = serve_split(REGISTRY, wall)
+            hists = REGISTRY.snapshot()["histograms"]
+            rows_mean = hists["serve/rows_per_dispatch"]["mean"]
+            reqs_mean = hists["serve/requests_per_dispatch"]["mean"]
+            served = sorted({m["version"] for *_, m in records})
+            n_docs = sum(len(sub) for _, sub, _, _ in records)
+            say("serve", f"config 5: {len(records)} requests ({n_docs} docs) from "
+                f"{SERVE_CLIENTS} clients in {wall:.2f}s: {len(records) / wall:.1f} requests/s, "
+                f"{n_docs / wall:.0f} docs/s; {stats}; swap {action_ms['swap']:.0f} ms, "
+                f"rollback {action_ms['rollback']:.0f} ms (client side, load and prewarm "
+                f"included); versions served {served}; launches {launches} ({smi_line})")
+            say("serve", f"config 5 time split (host clock): {split}")
+            if served != ["v1", "v2"]:
+                fail(f"serve: the swap and rollback served versions {served}")
+            if registry.current_version() != "v1":
+                fail("serve: the rollback did not restore v1")
+            if launches["fused_detect"] <= 0 or launches["fused_segment"] <= 0:
+                fail(f"serve: config 5 answered without the fused kernels: {launches}")
+            if rows_mean <= 1 or reqs_mean <= 1:
+                fail(f"serve: no coalescing (mean rows per dispatch {rows_mean}, requests "
+                     f"per dispatch {reqs_mean})")
+            note = serve_check("serve config 5", records, {"v1": model5, "v2": ref300},
+                               exact=True)
+            say("serve", f"config 5: every answer equals the direct runner of its version, "
+                f"{note}")
+            gc.collect()
+            torch.cuda.synchronize()
+            mem_after = torch.cuda.memory_allocated(dev)
+            say("serve", f"device memory allocated before the swaps {mem_before / 1e6:.1f} MB, "
+                f"after swap + rollback {mem_after / 1e6:.1f} MB (v2's runner released: "
+                f"{registry.versions()[1]['strategy'] is None}; staging ring {ring / 1e6:.1f} "
+                "MB pinned)")
+            if mem_after - mem_before > ring:
+                fail(f"serve: device memory grew by {(mem_after - mem_before) / 1e6:.1f} MB "
+                     f"across the swaps, more than one staging ring ({ring / 1e6:.1f} MB)")
+            busy = serve_busy_share(torch, lambda: serve_load(
+                ServeClient, server.address, texts5[2000:3000], SERVE_CLIENTS, 4))
+            say("serve", f"config 5, {SERVE_CLIENTS} clients x 4 rounds under the profiler: "
+                f"{busy} ({smi_line})")
+            REGISTRY.reset()
+            ok, shed = serve_burst(ServeClient, ServeHTTPError, server, texts5[3000:4000])
+            say("serve", f"config 5 burst: {SERVE_BURST} concurrent bulk requests against "
+                f"max_queue_rows=16: {ok} answered, {shed} shed with 503 + Retry-After, none "
+                f"dropped; counters {_counts(REGISTRY, 'serve/shed_queue_full', 'serve/requests')}")
+            if not shed:
+                fail("serve: the burst against max_queue_rows=16 shed nothing")
+        del registry, server
+
+    # 4. Config 3 (hybrid: bigram_hist + row_hist), the shorter run.
+    registry = ModelRegistry(device=str(dev))
+    registry.install(model3)
+    with ServingServer(registry, port=0, max_wait_ms=5, max_rows=256) as server:
+        REGISTRY.reset()
+        reset_launches()
+        records, wall, _ = serve_load(ServeClient, server.address, case3.texts[:4000],
+                                      SERVE3_CLIENTS, SERVE3_ROUNDS)
+        launches = read_launches()
+        n_docs = sum(len(sub) for _, sub, _, _ in records)
+        say("serve", f"config 3: {len(records)} requests ({n_docs} docs) from {SERVE3_CLIENTS} "
+            f"clients in {wall:.2f}s: {len(records) / wall:.1f} requests/s, "
+            f"{n_docs / wall:.0f} docs/s; {serve_stats(REGISTRY)}; launches {launches} "
+            f"({smi_line})")
+        say("serve", f"config 3 time split (host clock): {serve_split(REGISTRY, wall)}")
+        if launches["row_hist"] <= 0 or launches["bigram_hist"] <= 0:
+            fail(f"serve: config 3 answered without the histogram kernels: {launches}")
+        note = serve_check("serve config 3", records, {"v1": model3}, exact=False)
+        say("serve", f"config 3: every answer equals the direct runner, {note}")
+        ok, shed = serve_burst(ServeClient, ServeHTTPError, server, case3.texts[4000:5000])
+        say("serve", f"config 3 burst: {ok} answered, {shed} shed, none dropped")
+        if not shed:
+            fail("serve: the config-3 burst against max_queue_rows=16 shed nothing")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--quick", action="store_true",
@@ -2504,6 +2854,8 @@ def main() -> None:
         phase_persist(torch, dev, model, main_docs, model3, fit3_case.texts)
     with phase_clock("runner"):
         phase_runner(torch, dev, model, main_docs, main_ids, model3, fit3_case, smi_line)
+    with phase_clock("serve"):
+        phase_serve(torch, dev, model, main_docs, fit5_case, model3, fit3_case, smi_line)
     bad = [k for k in ("jax", "jaxlib", "spark_languagedetector_tpu") if k in sys.modules]
     if bad:
         fail(f"JAX modules were imported: {bad}")

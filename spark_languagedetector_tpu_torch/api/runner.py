@@ -96,7 +96,7 @@ from ..exec.staging import HostStaging, copy_to_host_async, host_numpy
 from ..ops import bucket as bucket_ops
 from ..ops import cuckoo as cuckoo_ops
 from ..ops import score as score_ops
-from ..ops import score_fused, score_hist, score_pallas
+from ..ops import _kernels, score_fused, score_hist, score_pallas
 from ..ops.encode_device import (
     DocBlock,
     chunk_table,
@@ -459,6 +459,26 @@ class BatchRunner:
                 self.table_lut = torch.from_numpy(lut).to(dev)
                 held.append(self.table_lut)
         self._table_bytes = sum(t.numel() * t.element_size() for t in held)
+
+    def kernels(self) -> tuple:
+        """The CUDA kernels this runner's strategy can launch, none off the
+        card: the fused pair for ``fused`` (its segment mode included), the
+        bigram kernel of its width for ``pallas``/``hybrid``, and the row
+        histogram where the runner holds its operands."""
+        if self.device.type != "cuda":
+            return ()
+        if self.strategy == "fused":
+            return (_kernels.FUSED_DETECT, _kernels.FUSED_SEGMENT)
+        out = []
+        if self.pallas_state is not None:
+            out.append(
+                _kernels.BIGRAM_HIST
+                if self.num_langs > score_pallas.MAX_PALLAS_LANGS
+                else _kernels.BIGRAM_SCORE
+            )
+        if self.hist_state is not None:
+            out.append(_kernels.ROW_HIST)
+        return tuple(out)
 
     @property
     def max_chunk(self) -> int:

@@ -3,9 +3,9 @@
 Port of ``spark_languagedetector_tpu.exec.config``. The table holds the
 knobs a module of the port reads, under the JAX package's names, env
 spellings, types and defaults, so one environment configures both packages
-alike. The JAX package's other knobs (serving, fleet, zoo, scale,
-cold-start, exporter, multi-process) are listed in ``ROADMAP.md`` against
-the work that will bring their readers.
+alike. The JAX package's other knobs (fleet, hedging, quarantine, zoo,
+retry budget, scale, cold-start, exporter, multi-process) are listed in
+``ROADMAP.md`` against the work that will bring their readers.
 
 Every knob resolves here, once, with type validation and a single
 precedence rule:
@@ -117,6 +117,27 @@ KNOBS: dict[str, Knob] = _knobs(
          "degraded-ladder fallback on retryable exhaustion"),
     Knob("fault_plan", "LANGDETECT_FAULT_PLAN", "str", None,
          "chaos fault plan spec (tests/drills only)"),
+    # --- serve score cache -------------------------------------------------
+    Knob("cache_enable", "LANGDETECT_CACHE_ENABLE", "bool", True,
+         "version-keyed serve score cache in front of the runner"),
+    Knob("cache_rows", "LANGDETECT_CACHE_ROWS", "int", 1 << 16,
+         "serve cache entry bound (documents)", tunable=True,
+         positive=True),
+    Knob("cache_bytes", "LANGDETECT_CACHE_BYTES", "int", 64 << 20,
+         "serve cache byte bound (keys + stored results)", tunable=True,
+         positive=True),
+    # --- serving (tunable: flush window + shape bounds) -------------------
+    Knob("serve_max_wait_ms", "LANGDETECT_SERVE_MAX_WAIT_MS", "float", 10.0,
+         "serve coalescing window: max ms the oldest queued request "
+         "waits before a flush", tunable=True, positive=True),
+    Knob("serve_max_rows", "LANGDETECT_SERVE_MAX_ROWS", "int", 256,
+         "serve coalescing bound: rows per dispatched batch",
+         tunable=True, positive=True),
+    Knob("serve_queue_rows", "LANGDETECT_SERVE_QUEUE_ROWS", "int", 4096,
+         "serve admission bound: queued rows before shedding",
+         tunable=True, positive=True),
+    Knob("serve_slo_ms", "LANGDETECT_SERVE_SLO_MS", "float", 0.0,
+         "estimated-wait shed threshold (0: off)"),
     # --- telemetry --------------------------------------------------------
     Knob("telemetry_fence", "LANGDETECT_TELEMETRY_FENCE", "bool", False,
          "fence spans on device completion"),
@@ -140,6 +161,9 @@ DEPRECATED_ENV: dict[str, str] = {
     "LANGDETECT_LENGTH_BUCKETS": "length_buckets",
     "LANGDETECT_BATCH_BYTES": "batch_bytes",
     "LANGDETECT_FIT_BATCH_BYTES": "fit_batch_bytes",
+    "LANGDETECT_SERVE_MAX_WAIT_MS": "serve_max_wait_ms",
+    "LANGDETECT_SERVE_MAX_ROWS": "serve_max_rows",
+    "LANGDETECT_SERVE_QUEUE_ROWS": "serve_queue_rows",
 }
 
 

@@ -16,13 +16,15 @@ Port of ``spark_languagedetector_tpu.exec.core``:
   * :func:`ordered_prefetch` — the bounded, ordered one-thread pipeline
     under the fit's packer;
   * :func:`guarded_dispatch` — the breaker-gated fast path + classified retry
-    + degraded-ladder hand-off the runner's dispatch rides.
-
-The serving front end's ``AdmissionQueue`` is not ported yet.
+    + degraded-ladder hand-off the runner's dispatch rides;
+  * :class:`AdmissionQueue` — priority lanes, bounded rows, flush-window
+    coalescing and explicit shedding behind ``serve/batcher``.
 """
 
 from __future__ import annotations
 
+import threading
+import time
 from collections import deque
 from typing import Callable, Iterable, Iterator, Sequence
 
@@ -236,3 +238,225 @@ def guarded_dispatch(
     else:
         REGISTRY.incr("resilience/breaker_short_circuit")
     return degraded(cause)
+
+
+class AdmissionQueue:
+    """Priority-lane admission queue with flush-window coalescing and
+    explicit shedding: the serving front end's half of the core
+    (``serve/batcher`` wraps it).
+
+    Items are admitted into lanes (drained in ``lanes`` order, so a bulk
+    backlog never delays an interactive request) and popped as one
+    coalesced batch by :meth:`next_batch`: the flush fires when
+    ``max_rows`` are queued or the oldest admitted item has waited
+    ``max_wait_s`` on ``clock``. Backpressure is reject-newest and
+    explicit: :meth:`admit` returns a shed reason (queue past
+    ``max_queue_rows``, estimated wait past ``slo_s``, or the caller's
+    ``shed_probe``) instead of queueing into a blown SLO. One consumer
+    thread is assumed (the dispatcher); any number of producers may admit
+    concurrently.
+    """
+
+    def __init__(
+        self,
+        *,
+        max_rows: int,
+        max_wait_s: float,
+        max_queue_rows: int,
+        slo_s: float = 0.0,
+        lanes: Sequence[str] = ("interactive", "bulk"),
+        shed_probe: Callable[[str], str | None] | None = None,
+        on_change: Callable[[int, int], None] | None = None,
+        clock: Callable[[], float] = time.monotonic,
+    ):
+        if max_rows < 1 or max_queue_rows < 1:
+            raise ValueError("max_rows and max_queue_rows must be >= 1")
+        self.max_rows = int(max_rows)
+        self.max_wait_s = float(max_wait_s)
+        self.max_queue_rows = int(max_queue_rows)
+        self.slo_s = float(slo_s)
+        self.lanes = tuple(lanes)
+        self._shed_probe = shed_probe
+        self._on_change = on_change
+        self._clock = clock
+        self._lock = threading.Lock()
+        self._cv = threading.Condition(self._lock)
+        # lane -> deque of (item, rows, admitted_at)
+        self._queues: dict[str, deque] = {p: deque() for p in self.lanes}
+        self.queued_rows = 0
+        self.inflight_rows = 0
+        # Rows/s over recent dispatches (EMA): the estimated-wait shed
+        # signal. Zero until the first dispatch lands.
+        self.ema_rows_per_s = 0.0
+        self.closed = False
+        # Queue-local shed tallies (everything but "closed", which is
+        # lifecycle, not backpressure), for /healthz.
+        self.shed_requests = 0
+        self.shed_rows = 0
+        self.shed_reasons: dict[str, int] = {}
+
+    # ------------------------------------------------------------- admit ----
+    def admit(self, item, rows: int, lane: str) -> tuple[str | None, float]:
+        """Atomically admit one item, or return why it was shed.
+
+        Returns ``(None, est_wait_s)`` on admission, else
+        ``(reason, est_wait_s)`` with the item NOT queued. Reasons:
+        ``"closed"``, ``"queue_full"``, ``"slo"``, or whatever the
+        ``shed_probe`` returned for this lane. Reject-newest: queued work
+        is never evicted."""
+        if lane not in self._queues:
+            raise ValueError(
+                f"unknown lane {lane!r}; expected one of {self.lanes}"
+            )
+        with self._cv:
+            if self.closed:
+                return "closed", 0.0
+            backlog = self.queued_rows + self.inflight_rows
+            wait_s = (
+                backlog / self.ema_rows_per_s
+                if self.ema_rows_per_s > 0
+                else 0.0
+            )
+            if self.queued_rows + rows > self.max_queue_rows:
+                return self._shed_locked("queue_full", rows), wait_s
+            if self.slo_s > 0 and wait_s > self.slo_s:
+                return self._shed_locked("slo", rows), wait_s
+            if self._shed_probe is not None:
+                reason = self._shed_probe(lane)
+                if reason is not None:
+                    return self._shed_locked(reason, rows), wait_s
+            self._queues[lane].append((item, int(rows), self._clock()))
+            self.queued_rows += rows
+            self._notify_change_locked()
+            self._cv.notify_all()
+        return None, wait_s
+
+    def _shed_locked(self, reason: str, rows: int) -> str:
+        self.shed_requests += 1
+        self.shed_rows += rows
+        self.shed_reasons[reason] = self.shed_reasons.get(reason, 0) + 1
+        return reason
+
+    def _notify_change_locked(self) -> None:
+        if self._on_change is not None:
+            depth = sum(len(q) for q in self._queues.values())
+            self._on_change(depth, self.queued_rows)
+
+    def _oldest_locked(self) -> float | None:
+        ages = [q[0][2] for q in self._queues.values() if q]
+        return min(ages) if ages else None
+
+    def _take_locked(self, key) -> list:
+        """Pop one coalesced batch: lanes in priority order, whole items
+        only, until ``max_rows`` is reached (the first item is always
+        taken, even when larger). ``key(item)`` partitions items that
+        cannot share a dispatch: the first item taken sets the batch's key,
+        whose items are gathered from every lane; items of other keys are
+        stepped over and keep their places (they lead later batches). Ending
+        the batch at the first key flip instead would serve interleaved
+        kinds of request (score, labels, segment from clients in lockstep)
+        one request per dispatch."""
+        batch: list = []
+        rows = 0
+        lead_key = None
+        for lane in self.lanes:
+            q = self._queues[lane]
+            skipped: list = []
+            while q and (rows < self.max_rows or not batch):
+                if key is not None:
+                    k = key(q[0][0])
+                    if batch and k != lead_key:
+                        skipped.append(q.popleft())
+                        continue
+                    lead_key = k
+                item, item_rows, _ = q.popleft()
+                batch.append(item)
+                rows += item_rows
+            q.extendleft(reversed(skipped))
+        self.queued_rows -= rows
+        self.inflight_rows = rows
+        self._notify_change_locked()
+        return batch
+
+    # -------------------------------------------------------------- take ----
+    def next_batch(self, *, key: Callable | None = None) -> list | None:
+        """Block until a coalesced batch is due, pop and return it; None
+        once the queue is closed and drained. The window holds until
+        ``max_rows`` are queued or the oldest item has waited
+        ``max_wait_s`` by ``clock`` (or the queue closes)."""
+        while True:
+            with self._cv:
+                while self.queued_rows == 0 and not self.closed:
+                    self._cv.wait()
+                if self.queued_rows == 0 and self.closed:
+                    return None
+                while self.queued_rows < self.max_rows:
+                    oldest = self._oldest_locked()
+                    if oldest is None:
+                        break
+                    remaining = oldest + self.max_wait_s - self._clock()
+                    if remaining <= 0 or self.closed:
+                        break
+                    self._cv.wait(remaining)
+                if self.queued_rows == 0:
+                    continue
+                return self._take_locked(key)
+
+    def wake(self) -> None:
+        """Re-check the flush window now (an injected ``clock`` moved)."""
+        with self._cv:
+            self._cv.notify_all()
+
+    def done(self) -> None:
+        """Mark the in-flight batch settled (the consumer calls this after
+        every dispatch, success or failure)."""
+        with self._cv:
+            self.inflight_rows = 0
+            self._cv.notify_all()
+
+    def record_rate(self, rows: int, seconds: float) -> None:
+        """Fold one dispatch's throughput into the shed-signal EMA."""
+        if seconds <= 0:
+            return
+        rate = rows / seconds
+        with self._lock:
+            self.ema_rows_per_s = (
+                rate
+                if self.ema_rows_per_s == 0.0
+                else 0.7 * self.ema_rows_per_s + 0.3 * rate
+            )
+
+    # ------------------------------------------------------------- admin ----
+    def close(self, drain: bool = True) -> list:
+        """Stop admitting. With ``drain`` the queued items stay for the
+        consumer; otherwise they are evicted and returned so the caller
+        can fail them explicitly (never a silent drop)."""
+        evicted: list = []
+        with self._cv:
+            self.closed = True
+            if not drain:
+                for q in self._queues.values():
+                    while q:
+                        item, rows, _ = q.popleft()
+                        self.queued_rows -= rows
+                        evicted.append(item)
+                self._notify_change_locked()
+            self._cv.notify_all()
+        return evicted
+
+    def stats(self) -> dict:
+        with self._lock:
+            return {
+                "queue_depth": sum(len(q) for q in self._queues.values()),
+                "queued_rows": self.queued_rows,
+                "inflight_rows": self.inflight_rows,
+                "ema_rows_per_s": round(self.ema_rows_per_s, 3),
+                "max_rows": self.max_rows,
+                "max_wait_ms": self.max_wait_s * 1e3,
+                "max_queue_rows": self.max_queue_rows,
+                "slo_ms": self.slo_s * 1e3,
+                "closed": self.closed,
+                "shed_requests": self.shed_requests,
+                "shed_rows": self.shed_rows,
+                "shed_reasons": dict(self.shed_reasons),
+            }

@@ -30,6 +30,7 @@ other, its calibration included.
 from __future__ import annotations
 
 import json
+import threading
 from typing import Sequence
 
 import numpy as np
@@ -375,6 +376,10 @@ class LanguageDetectorModel(HasInputCol, HasOutputCol, _ResultModeParams, _Devic
     def __init__(self, profile: GramProfile, uid: str | None = None, device: str | None = None):
         super().__init__(uid, uid_prefix="LanguageDetectorModel")
         self.profile = profile
+        # Serving reads ``runner`` from several threads at once (the
+        # dispatcher, a swap's prewarm, HTTP handlers): one build, one
+        # runner, under this lock.
+        self._runner_lock = threading.Lock()
         self.set_default(
             inputCol="fulltext",
             outputCol="lang",
@@ -464,32 +469,48 @@ class LanguageDetectorModel(HasInputCol, HasOutputCol, _ResultModeParams, _Devic
 
     def __getstate__(self):
         # Copies (Params.copy deep-copies) never share the runner's device
-        # tensors; they rebuild it lazily.
+        # tensors; they rebuild it lazily. A lock cannot be copied: each
+        # copy makes its own.
         state = self.__dict__.copy()
+        state.pop("_runner_lock", None)
         state["_runner"] = None
         return state
 
+    def __setstate__(self, state):
+        self.__dict__.update(state)
+        self._runner_lock = threading.Lock()
+
     @property
     def runner(self) -> BatchRunner:
-        """The model's runner, built on first use (uploads the fused table)."""
-        if self._runner is None:
-            # Host tensors of the profile's device view (dense table, LUT or
-            # cuckoo table); the runner uploads what its strategy reads.
-            weights, lut, cuckoo = self.profile.device_membership(device="cpu")
-            self._runner = BatchRunner(
-                weights=weights,
-                lut=lut,
-                cuckoo=cuckoo,
-                spec=self.profile.spec,
-                device=self.get("device"),
-                batch_size=self.get("batchSize"),
-                quantization=self.get("quantization"),
-                max_score_bytes=self.get("maxScoreBytes"),
-                # maxScoreBytes truncation must know how the docs were
-                # encoded: low_byte docs take a hard slice.
-                score_encoding=self.get("predictEncoding"),
-            )
-        return self._runner
+        """The model's runner, built once on first use (uploads the fused
+        table), however many threads ask at the same time."""
+        with self._runner_lock:
+            if self._runner is None:
+                # Host tensors of the profile's device view (dense table,
+                # LUT or cuckoo table); the runner uploads what its
+                # strategy reads.
+                weights, lut, cuckoo = self.profile.device_membership(device="cpu")
+                self._runner = BatchRunner(
+                    weights=weights,
+                    lut=lut,
+                    cuckoo=cuckoo,
+                    spec=self.profile.spec,
+                    device=self.get("device"),
+                    batch_size=self.get("batchSize"),
+                    quantization=self.get("quantization"),
+                    max_score_bytes=self.get("maxScoreBytes"),
+                    # maxScoreBytes truncation must know how the docs were
+                    # encoded: low_byte docs take a hard slice.
+                    score_encoding=self.get("predictEncoding"),
+                )
+            return self._runner
+
+    def release_runner(self) -> None:
+        """Drop the cached runner, so its device tables and pinned staging
+        can be freed once no caller holds it; the next ``runner`` read
+        builds a new one."""
+        with self._runner_lock:
+            self._runner = None
 
     def transform(self, dataset: Table) -> Table:
         out_schema = self.transform_schema(dataset.schema)

@@ -13,13 +13,19 @@
   fault plan (a dispatch fault replayed, a fetch fault replayed, a wire
   build fault down the ladder), and maps no packer library of the JAX
   package (its own comes from ``build/native/``).
+* A fourth, with ``jax`` unimportable, serves a saved model over HTTP on
+  the CPU (``ModelRegistry``, ``ServingServer``, ``ServeClient``): labels
+  and a segment result.
 * An AST scan finds no import of either anywhere in the port, ``segment/``
   included, nor in ``chip_smoke.py``, and no ``importlib`` in the port's
   pipeline loader, which looks stage classes up in a fixed table.
-* With no device given and no CUDA card, the entry points raise.
+* With no device given and no CUDA card, the entry points raise, the
+  serving ones (``ModelRegistry.load``, ``python -m
+  spark_languagedetector_tpu_torch.serve.server``) included.
 """
 
 import ast
+import os
 import subprocess
 import sys
 import textwrap
@@ -198,6 +204,82 @@ def test_execution_layer_runs_with_jax_unimportable():
     assert res.stdout.strip().endswith("isolated")
 
 
+def test_serving_over_http_runs_with_jax_unimportable():
+    script = textwrap.dedent(
+        """
+        import sys, tempfile
+        for name in ("jax", "jaxlib", "spark_languagedetector_tpu"):
+            sys.modules[name] = None  # any import of it raises ImportError
+        from spark_languagedetector_tpu_torch import LanguageDetector, Table
+        from spark_languagedetector_tpu_torch.serve import (
+            ModelRegistry, ServeClient, ServingServer)
+        table = Table({"lang": ["en", "de"] * 3,
+                       "fulltext": ["the cat sat", "der hund lief", "a dog barks",
+                                    "die katze schläft", "the end is near",
+                                    "das ende ist nah"]})
+        path = tempfile.mkdtemp() + "/model"
+        LanguageDetector(["en", "de"], [1, 2, 3], 50, device="cpu").fit(table).save(path)
+        registry = ModelRegistry(device="cpu")
+        registry.load(path)
+        with ServingServer(registry, port=0, max_wait_ms=2) as server:
+            client = ServeClient(*server.address)
+            labels, meta = client.detect(["the dog barks", "der hund"])
+            assert labels == ["en", "de"] and meta["version"] == "v1", (labels, meta)
+            results, _ = client.segment(["the dog barks " * 20])
+            assert results[0]["label"] == "en", results
+        bad = sorted(m for m, mod in sys.modules.items() if mod is not None
+                     and m.split(".")[0] in ("jax", "jaxlib", "spark_languagedetector_tpu"))
+        assert not bad, bad
+        print("isolated")
+        """
+    )
+    res = subprocess.run(
+        [sys.executable, "-c", script],
+        cwd=PORT_DIR.parent, capture_output=True, text=True, timeout=120,
+    )
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("isolated")
+
+
+def test_serving_entry_points_raise_without_a_card(tmp_path):
+    """``ModelRegistry.load`` with no device, and the server's module entry
+    point, need the card: with none visible they raise, never serve on the
+    CPU."""
+    from spark_languagedetector_tpu_torch.serve import ModelRegistry
+
+    model = LanguageDetectorModel.from_gram_map(
+        {b"a": [1.0, 0.0]}, [1, 2], ["en", "de"], device="cpu"
+    )
+    model.save(str(tmp_path / "m"))
+    script = textwrap.dedent(
+        f"""
+        import torch
+        torch.cuda.is_available = lambda: False
+        from spark_languagedetector_tpu_torch.serve import ModelRegistry
+        try:
+            ModelRegistry().load({str(tmp_path / "m")!r})
+        except RuntimeError as e:
+            assert "no CUDA device" in str(e), e
+            print("refused")
+        """
+    )
+    res = subprocess.run(
+        [sys.executable, "-c", script],
+        cwd=PORT_DIR.parent, capture_output=True, text=True, timeout=120,
+    )
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("refused")
+    res = subprocess.run(
+        [sys.executable, "-m", "spark_languagedetector_tpu_torch.serve.server",
+         str(tmp_path / "m"), "127.0.0.1:0"],
+        cwd=PORT_DIR.parent, capture_output=True, text=True, timeout=120,
+        env={**os.environ, "CUDA_VISIBLE_DEVICES": ""},
+    )
+    assert res.returncode != 0 and "no CUDA device" in res.stderr, res.stderr[-2000:]
+    assert "serving" not in res.stdout
+    assert ModelRegistry(device="cpu").load(str(tmp_path / "m")) == "v1"
+
+
 def test_no_module_of_the_port_imports_jax():
     offenders = []
     for path in sorted(PORT_DIR.rglob("*.py")) + [PORT_DIR.parent / "chip_smoke.py"]:
@@ -222,6 +304,9 @@ def test_no_module_of_the_port_imports_jax():
     assert {"api.py", "spans.py", "topk.py", "calibrate.py"} <= {
         p.name for p in (PORT_DIR / "segment").glob("*.py")
     }
+    assert {"__init__.py", "batcher.py", "cache.py", "registry.py", "client.py",
+            "server.py"} <= {p.name for p in (PORT_DIR / "serve").glob("*.py")}
+    assert (PORT_DIR / "telemetry" / "aggregate.py").is_file()
 
 
 def test_pipeline_loader_imports_nothing_by_name():
