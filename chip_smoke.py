@@ -126,6 +126,39 @@ Phases, one line or more each; any failure exits non-zero before the verdict:
    (labels and spans exact, scores ``rtol=1e-4, atol=1e-5``; said so).
    Printed: requests/s and docs/s under load, ``serve/total_s`` p50/p99,
    ``serve/queue_wait_s`` p99, the swap's and rollback's milliseconds.
+16. stream   — bench config 4 (10 languages, exact n = 1..3, profile 3,000,
+   fitted on 60 documents per language; auto → fused) through
+   ``stream.run_stream`` over 10,000 evaluation documents of ~1.5 KB in
+   8,192-row ``memory_source`` batches: with prefetch 0 x 1 worker and
+   prefetch 6 x 4 workers the sink sees every row once in source order,
+   labels bit for bit ``model.transform``'s (which hold against the plain
+   version on the card outside near-ties), ``fused_detect`` launched. Four
+   workers share the runner with a spin kernel queued ahead of every H2D
+   copy, one pinned buffer per size class and 64-row runner batches
+   (1,024-row source batches): labels bit for bit one worker's, and a take
+   waited on a pending copy (up to three runs until one has). The JAX chaos smoke's plan
+   (``seed=7;stream/batch:error@2;score/dispatch:error@6;
+   stream/batch:poison=2@3``, 1,024-row batches, 4 workers) with a
+   ``DeadLetterQueue``: the healthy rows' labels equal the fault-free run's,
+   the DLQ holds exactly the poisoned rows (batch 2, their row indices),
+   ``stream/retries`` >= 1, no degraded batch. A ``checkpoint_path`` run
+   cut at ``max_batches=1``, then rerun: ``resumed_from == 1``, the corpus
+   sunk once. Printed, claiming nothing: rows/s over three runs, per-batch
+   latency p50/p95 and the device's busy share.
+17. refit    — the continuous-learning loop at config 5: phase 4's 5,280
+   training documents as 12 labeled batches of 440 into ``AutoRefit``
+   (the accumulator is the 0.738 GB int32 [2^20, 176] table on the card,
+   a fit-state checkpoint after every batch); run 1 refits every 2
+   batches and stops after 6 (the kill; its saved state reads back as the
+   accumulator's rows), run 2 resumes on the same state (``resumed_from ==
+   6``), refits every 4 and at the end. The served profile is bit-identical
+   to phase 11's device fit and phase 4's host fit, the served version's
+   ``refit_token`` is 12, ``fit/collect_bytes`` per finalize is under half
+   the table, the served runner answers phase 4's documents through
+   ``fused_detect`` bit for bit the from-scratch model's runner, retired
+   versions released their runners, and device memory after the last swap
+   is within one staging ring of (before + the table). Printed: update,
+   finalize, checkpoint and swap times, and the peak device memory.
 
 Each phase prints its seconds. Phase 2 also builds the native packer
 (``native/*.cpp`` with g++) and fails if it cannot.
@@ -373,10 +406,12 @@ def macro_span_f1(truths, results, doc_lens, name_of=lambda lang: lang) -> float
 
 
 HOLD_CYCLES = 20_000_000  # about 10 ms of spinning at the H100's clocks
-# Spin queued ahead of each staged copy in the staging check: half of
-# HOLD_CYCLES, longer than packing a batch takes, so an early reuse lands
-# before the copy.
-STAGING_SPIN_CYCLES = 10_000_000
+# Spin queued ahead of each staged copy in the staging checks (phases 14
+# and 16): about 20 ms, longer than packing a batch takes even on a loaded
+# host (a 5 ms spin once let every copy finish before the next take), so
+# an early reuse lands before the copy.
+STAGING_SPIN_CYCLES = 40_000_000
+STAGING_ATTEMPTS = 3  # runs of a staging check until a take has waited on a copy
 STAGING_BATCH = 256  # rows per batch there: many batches of one size class per call
 LADDER_DOCS = 400  # documents of the ladder check (its host rung scores on the CPU)
 LADDER_BATCH = 128  # rows per batch there, so the open breaker short-circuits some
@@ -1843,8 +1878,9 @@ def phase_clock(name: str):
 
 @contextlib.contextmanager
 def walls_of(torch, module, names, walls: dict):
-    """Wrap ``module.<name>`` for each name so its calls add their host-clock
-    seconds (card synchronized at both ends) to ``walls[name]``."""
+    """Wrap ``module.<name>`` (a module or a class) for each name so each
+    call appends its host-clock seconds (card synchronized at both ends) to
+    ``walls[name]``."""
     def timed(name, fn):
         def call(*a, **k):
             torch.cuda.synchronize()
@@ -1853,7 +1889,7 @@ def walls_of(torch, module, names, walls: dict):
                 return fn(*a, **k)
             finally:
                 torch.cuda.synchronize()
-                walls[name] = walls.get(name, 0.0) + time.perf_counter() - t0
+                walls.setdefault(name, []).append(time.perf_counter() - t0)
         return call
 
     with contextlib.ExitStack() as stack:
@@ -1874,7 +1910,7 @@ def device_fit(torch, what: str, case: FitCase, kernels, smi_line: str):
     det = case.det.copy({"fitBackend": "device"})
     runs = []
     for _ in range(2):  # the first call in the process, then a warm one
-        walls: dict[str, float] = {}
+        walls: dict[str, list[float]] = {}
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         with walls_of(torch, FT, ("accumulate_counts", "finalize_counts"), walls), \
@@ -1882,7 +1918,7 @@ def device_fit(torch, what: str, case: FitCase, kernels, smi_line: str):
             t0 = time.perf_counter()
             model = det.fit(case.table)
             torch.cuda.synchronize()
-            walls["fit"] = time.perf_counter() - t0
+            walls["fit"] = [time.perf_counter() - t0]
         runs.append(walls)
         p, h = model.profile, case.model.profile
         if not (p.spec == h.spec and np.array_equal(p.ids, h.ids)
@@ -1902,6 +1938,7 @@ def device_fit(torch, what: str, case: FitCase, kernels, smi_line: str):
     V, L = spec.id_space_size, len(p.languages)
     blocked = V * L > FT.TOPK_SORT_BUDGET_ELEMS
     def split(w):
+        w = {k: sum(v) for k, v in w.items()}
         host_half = (f", host long-gram count {w['extract_gram_counts']:.3f}s"
                      if "extract_gram_counts" in w else "")
         return (f"{w['fit']:.3f}s (count {w['accumulate_counts']:.3f}s, finalize "
@@ -1993,7 +2030,7 @@ def fit_at_scale(torch, case: FitCase, factor: int, smi_line: str) -> None:
     train, labels = make_corpus(langs, factor * case.table.num_rows, seed=4)
     table = Table({"lang": labels, "fulltext": train})
     make_s = time.perf_counter() - t0
-    walls: dict[str, float] = {}
+    walls: dict[str, list[float]] = {}
     with walls_of(torch, FT, ("accumulate_counts", "finalize_counts"), walls):
         t0 = time.perf_counter()
         dev_model = case.det.copy({"fitBackend": "device"}).fit(table)
@@ -2007,7 +2044,8 @@ def fit_at_scale(torch, case: FitCase, factor: int, smi_line: str) -> None:
         fail(f"fit5 x{factor}: the device fit's profile differs from the host fit's")
     say("fit5", f"x{factor} corpus: {len(train)} docs ({sum(map(len, train)) / 1e6:.2f} MB, "
         f"made in {make_s:.1f}s): device fit {dev_s:.3f}s (count "
-        f"{walls['accumulate_counts']:.3f}s, finalize {walls['finalize_counts']:.3f}s), "
+        f"{sum(walls['accumulate_counts']):.3f}s, finalize "
+        f"{sum(walls['finalize_counts']):.3f}s), "
         f"host fit {host_s:.2f}s, both warm; profiles bit-identical ({len(p.ids)} grams); "
         f"card {smi_line}")
 
@@ -2149,7 +2187,9 @@ def staging_stress(torch, dev, r5, docs5, ref_s, ref_l) -> None:
     every host-to-device copy, one pinned buffer per size class and batches
     of STAGING_BATCH rows (so that consecutive batches share a size class):
     a buffer handed out again before its copy has run, or a result read
-    before its copy back, changes the scores, and the phase fails."""
+    before its copy back, changes the scores, and the phase fails. Every
+    run is checked; runs repeat (up to STAGING_ATTEMPTS) until a take has
+    waited on a pending copy, the reuse under test."""
     from spark_languagedetector_tpu_torch.api import runner as runner_mod
     from spark_languagedetector_tpu_torch.exec import staging
 
@@ -2165,25 +2205,30 @@ def staging_stress(torch, dev, r5, docs5, ref_s, ref_l) -> None:
     r5.batch_size = STAGING_BATCH
     try:
         with swapped(staging, "RING_DEPTH", 1), swapped(staging.Staged, "to_device", delayed):
-            for form, size_test, encode in (("ragged", runner_mod.ragged_fit, False),
-                                            ("padded", lambda *a: None, False),
-                                            ("wire", runner_mod.ragged_fit, True)):
-                for workers in (1, 2):
-                    r5.device_encode, r5.dispatch_workers = encode, workers
-                    with swapped(runner_mod, "ragged_fit", size_test):
-                        s, l = r5.score(docs5), r5.predict_ids(docs5)
-                    _same(f"staging check: scores, {form} form, {workers} worker(s)", s, ref_s)
-                    _same(f"staging check: labels, {form} form, {workers} worker(s)", l, ref_l)
+            for runs in range(1, STAGING_ATTEMPTS + 1):
+                for form, size_test, encode in (("ragged", runner_mod.ragged_fit, False),
+                                                ("padded", lambda *a: None, False),
+                                                ("wire", runner_mod.ragged_fit, True)):
+                    for workers in (1, 2):
+                        r5.device_encode, r5.dispatch_workers = encode, workers
+                        with swapped(runner_mod, "ragged_fit", size_test):
+                            s, l = r5.score(docs5), r5.predict_ids(docs5)
+                        _same(f"staging check: scores, {form} form, {workers} worker(s)",
+                              s, ref_s)
+                        _same(f"staging check: labels, {form} form, {workers} worker(s)",
+                              l, ref_l)
+                if r5._staging.waits:
+                    break
         waits = r5._staging.waits
     finally:
         r5._staging = ring
         for k, v in saved.items():
             setattr(r5, k, v)
     if not waits:
-        fail("staging check: no take waited on a copy, so no reuse was tested")
+        fail(f"staging check: in {runs} runs no take waited on a copy, so no reuse was tested")
     say("runner", f"staging check: a {STAGING_SPIN_CYCLES:,}-cycle spin ahead of every H2D "
         f"copy, one pinned buffer per size class, {STAGING_BATCH}-row batches: 3 forms x "
-        f"1-2 workers bit for bit; {waits} takes waited on a copy's event")
+        f"1-2 workers bit for bit; {waits} takes waited on a copy's event ({runs} run(s))")
 
 
 def phase_runner(torch, dev, model5, texts5, ids5, model3, case3: FitCase, smi_line) -> None:
@@ -2778,6 +2823,333 @@ def phase_serve(torch, dev, model5, texts5, case5: FitCase, model3, case3: FitCa
             fail("serve: the config-3 burst against max_queue_rows=16 shed nothing")
 
 
+# ------------------------------------------------------- stream, refit ------
+STREAM_BATCH = 8192  # bench config 4's source batch rows
+STREAM_SMALL_BATCH = 1024  # the chaos and spin legs: ten batches, four in flight
+STREAM_SPIN_ROWS = 64  # runner batch rows in the spin leg: 16 takes per source batch
+STREAM_PLAN = "seed=7;stream/batch:error@2;score/dispatch:error@6;stream/batch:poison=2@3"
+REFIT_BATCH = 440  # phase 4's 5,280 training documents as 12 labeled batches
+
+
+def stream_labels(run_stream, model, source, **kw):
+    """(labels, texts) the sink saw, in the order it saw them, and the query."""
+    labels, texts = [], []
+
+    def sink(t):
+        labels.extend(t.column("lang").tolist())
+        texts.extend(t.column("fulltext").tolist())
+
+    return labels, texts, run_stream(model, source, sink, **kw)
+
+
+def spin_check(torch, dev, runner, run, ref) -> tuple[int, int]:
+    """Four stream workers share ``runner`` with a spin kernel queued ahead
+    of every host-to-device copy and one pinned buffer per size class: a
+    buffer handed to one worker's batch before another's copy ran would
+    change labels. Each run's labels must equal ``ref``; runs repeat (up to
+    STAGING_ATTEMPTS) until a take has waited on a pending copy, which is
+    the reuse under test. Returns (runs, takes that waited)."""
+    from spark_languagedetector_tpu_torch.exec import staging
+
+    real_to_device = staging.Staged.to_device
+
+    def delayed(self):
+        torch.cuda._sleep(STAGING_SPIN_CYCLES)
+        return real_to_device(self)
+
+    ring = runner._staging
+    runner._staging = staging.HostStaging(dev)
+    try:
+        with swapped(staging, "RING_DEPTH", 1), swapped(staging.Staged, "to_device", delayed):
+            for runs in range(1, STAGING_ATTEMPTS + 1):
+                got = run()
+                if got != ref:
+                    bad = sum(a != b for a, b in zip(got, ref))
+                    fail(f"stream spin check: 4 workers under the spin gave {bad} labels "
+                         "other than 1 worker's")
+                if runner._staging.waits:
+                    break
+        waits = runner._staging.waits
+    finally:
+        runner._staging = ring
+    if not waits:
+        fail(f"stream spin check: in {runs} runs no take waited on a copy, so no reuse "
+             "was tested")
+    return runs, waits
+
+
+def phase_stream(torch, dev, smi_line) -> int:
+    """Bench config 4 through ``run_stream`` (phase 16 of the module
+    docstring); returns the ``fused_detect`` launches of its gated runs."""
+    import tempfile
+
+    from spark_languagedetector_tpu_torch import LanguageDetector, Table
+    from spark_languagedetector_tpu_torch.ops import score_fused as SF
+    from spark_languagedetector_tpu_torch.resilience import DeadLetterQueue, faults
+    from spark_languagedetector_tpu_torch.resilience.faults import FaultPlan
+    from spark_languagedetector_tpu_torch.resilience.policy import RetryPolicy
+    from spark_languagedetector_tpu_torch.stream import memory_source, run_stream
+    from spark_languagedetector_tpu_torch.telemetry import REGISTRY
+
+    langs = language_names(10)
+    train, train_labels = make_corpus(langs, 60 * len(langs), seed=1)
+    model = LanguageDetector(langs, [1, 2, 3], 3000, device=str(dev)).fit(
+        Table({"lang": train_labels, "fulltext": train}))
+    texts, _ = make_corpus(langs, 10000, seed=2)
+    rows = [{"fulltext": t} for t in texts]
+    runner = model.runner
+    if runner.strategy != "fused":
+        fail(f"config 4 runner strategy is {runner.strategy!r}, expected 'fused'")
+    t0 = time.perf_counter()
+    ref = model.transform(Table({"fulltext": texts})).column("lang").tolist()
+    say("stream", f"config 4: {model.profile.num_grams} grams ({model.profile.spec}), strategy "
+        f"{runner.strategy}; {len(texts)} docs ({sum(map(len, texts)) / 1e6:.2f} MB); "
+        f"model.transform of the whole corpus {time.perf_counter() - t0:.2f}s")
+    idx = {l: i for i, l in enumerate(langs)}
+    ref_ids = np.asarray([idx[l] for l in ref])
+    byte_docs = [t.encode() for t in texts]
+    with plain_version(SF):
+        plain_scores = runner.score(byte_docs)
+    flips = check_labels("stream: transform vs plain", ref_ids, np.argmax(plain_scores, 1),
+                         plain_scores)
+    say("stream", f"model.transform labels vs the plain version on the card: "
+        f"{len(ref) - flips}/{len(ref)} identical, {flips} near-tie exceptions")
+
+    # 1. The gated runs: every row once, in source order, labels = transform's.
+    reset_launches()
+    for prefetch, workers in ((0, 1), (6, 4)):
+        labels, seen, query = stream_labels(run_stream, model,
+                                            memory_source(rows, STREAM_BATCH),
+                                            prefetch=prefetch, workers=workers)
+        if seen != texts:
+            fail(f"stream prefetch={prefetch} workers={workers}: the sink did not see every "
+                 "row once in source order")
+        if labels != ref:
+            fail(f"stream prefetch={prefetch} workers={workers}: "
+                 f"{sum(a != b for a, b in zip(labels, ref))} labels differ from "
+                 "model.transform's")
+    launches = read_launches()["fused_detect"]
+    if launches <= 0:
+        fail("stream: the streamed batches never launched fused_detect")
+    say("stream", f"{STREAM_BATCH}-row batches, prefetch 0 x 1 worker and prefetch 6 x 4 "
+        f"workers: every row once in source order, labels bit for bit model.transform's; "
+        f"fused_detect launches {launches}")
+
+    # 2. Spin check: four workers on one runner, a spin ahead of every copy,
+    # small runner batches so consecutive takes share a size class.
+    saved_rows = runner.batch_size
+    runner.batch_size = STREAM_SPIN_ROWS
+    try:
+        small_ref, _, _ = stream_labels(run_stream, model,
+                                        memory_source(rows, STREAM_SMALL_BATCH),
+                                        prefetch=0, workers=1)
+        runs, waits = spin_check(torch, dev, runner, lambda: stream_labels(
+            run_stream, model, memory_source(rows, STREAM_SMALL_BATCH), prefetch=6,
+            workers=4)[0], small_ref)
+    finally:
+        runner.batch_size = saved_rows
+    if small_ref != ref:
+        fail("stream: labels of the 1-worker stream at a small runner batch differ from "
+             "model.transform's")
+    say("stream", f"spin check: {STREAM_SMALL_BATCH}-row source batches, {STREAM_SPIN_ROWS}-row "
+        f"runner batches, 4 workers, a {STAGING_SPIN_CYCLES:,}-cycle spin ahead of every H2D "
+        f"copy, one pinned buffer per size class: labels bit for bit 1 worker's and "
+        f"model.transform's; {waits} takes waited on a copy's event ({runs} run(s))")
+
+    # 3. Chaos leg: the JAX chaos smoke's plan with a dead-letter queue.
+    plan = FaultPlan.parse(STREAM_PLAN)
+    poison = plan.poison_rows(3, STREAM_SMALL_BATCH)
+    REGISTRY.reset()
+    dlq = DeadLetterQueue()
+    with faults.plan_scope(plan):
+        labels, seen, query = stream_labels(
+            run_stream, model, memory_source(rows, STREAM_SMALL_BATCH),
+            retry_policy=RetryPolicy(max_attempts=3, base_delay_s=0.0), dlq=dlq,
+            prefetch=6, workers=4)
+    base = 2 * STREAM_SMALL_BATCH
+    dropped = {base + r for r in poison}
+    keep = [i for i in range(len(texts)) if i not in dropped]
+    if seen != [texts[i] for i in keep] or labels != [ref[i] for i in keep]:
+        fail("stream chaos: the healthy rows' labels differ from the fault-free run's")
+    if [(r["batch"], r["row_index"], r["row"]["fulltext"]) for r in dlq.records] != [
+            (2, r, texts[base + r]) for r in poison]:
+        fail(f"stream chaos: the DLQ holds {[(r['batch'], r['row_index']) for r in dlq.records]}"
+             f", expected batch 2 rows {poison}")
+    counters = _counts(REGISTRY, "stream/retries", "score/retries",
+                       "resilience/quarantined_batches", "resilience/degraded_batches")
+    if counters["stream/retries"] < 1:
+        fail(f"stream chaos: no stream retry counted ({counters})")
+    if counters["resilience/degraded_batches"]:
+        fail(f"stream chaos: a kernel path took the degraded ladder on the card ({counters})")
+    say("stream", f"chaos plan {STREAM_PLAN!r} with a DLQ, 4 workers: {query.batches} batches, "
+        f"healthy labels = the fault-free run's, DLQ = batch 2 rows {poison}; {counters}")
+
+    # 4. Checkpoint leg: one batch, then a rerun on the same checkpoint.
+    with tempfile.TemporaryDirectory(prefix="stream_smoke_") as tmp:
+        ck = f"{tmp}/ck.json"
+        _, first, q1 = stream_labels(run_stream, model, memory_source(rows, STREAM_BATCH),
+                                     checkpoint_path=ck, max_batches=1)
+        _, rest, q2 = stream_labels(run_stream, model, memory_source(rows, STREAM_BATCH),
+                                    checkpoint_path=ck, prefetch=6, workers=4)
+    if q2.resumed_from != 1 or first + rest != texts:
+        fail(f"stream checkpoint: resumed_from {q2.resumed_from}, {len(first)} + {len(rest)} "
+             f"rows sunk, expected 1 and the corpus once")
+    say("stream", f"checkpoint: max_batches=1 sank {len(first)} rows, the rerun resumed from "
+        f"batch {q2.resumed_from} and sank {len(rest)}: the corpus, each row once")
+
+    # 5. Claiming nothing: rows/s, per-batch latency, busy share.
+    rates, lat = [], []
+    for _ in range(3):
+        batch_s = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run_stream(model, memory_source(rows, STREAM_BATCH), lambda t: None, prefetch=6,
+                   workers=4, on_progress=lambda q: batch_s.append(q.last_batch_seconds))
+        torch.cuda.synchronize()
+        rates.append(len(rows) / (time.perf_counter() - t0))
+        lat += batch_s
+    busy = serve_busy_share(torch, lambda: run_stream(
+        model, memory_source(rows, STREAM_BATCH), lambda t: None, prefetch=6, workers=4))
+    say("stream", f"config 4, {STREAM_BATCH}-row batches, prefetch 6 x 4 workers: "
+        f"{', '.join(f'{r:.0f}' for r in rates)} rows/s (median {np.median(rates):.0f}, "
+        f"spread {max(rates) - min(rates):.0f}); per-batch latency p50 "
+        f"{np.percentile(lat, 50) * 1e3:.1f} ms, p95 {np.percentile(lat, 95) * 1e3:.1f} ms "
+        f"over {len(lat)} batches; {busy} ({smi_line})")
+    return launches
+
+
+def live_cuda_tensors(torch) -> dict:
+    """{id: (bytes, shape, dtype)} of the CUDA tensors Python holds."""
+    import gc
+
+    return {(id(o), o.data_ptr()): (o.numel() * o.element_size(), tuple(o.shape), str(o.dtype))
+            for o in gc.get_objects() if isinstance(o, torch.Tensor) and o.is_cuda}
+
+
+def phase_refit(torch, dev, case: FitCase, fit5_model, smi_line) -> int:
+    """The continuous-learning loop at config 5 (phase 17 of the module
+    docstring); returns the ``fused_detect`` launches of the served model's
+    answers."""
+    import gc
+    import tempfile
+
+    from spark_languagedetector_tpu_torch import Table
+    from spark_languagedetector_tpu_torch.models.refit import FitAccumulator
+    from spark_languagedetector_tpu_torch.persist.io import load_fit_state
+    from spark_languagedetector_tpu_torch.serve import ModelRegistry
+    from spark_languagedetector_tpu_torch.stream import AutoRefit
+    from spark_languagedetector_tpu_torch.telemetry import REGISTRY
+
+    det = case.det.copy({"fitBackend": "device"})
+    labels = case.table.column("lang").tolist()
+    texts = case.table.column("fulltext").tolist()
+    batches = [Table({"lang": labels[i:i + REFIT_BATCH], "fulltext": texts[i:i + REFIT_BATCH]})
+               for i in range(0, len(texts), REFIT_BATCH)]
+    if len(batches) != 12:
+        fail(f"refit: {len(texts)} training docs make {len(batches)} batches, expected 12")
+    docs = [t.encode() for t in case.texts]
+    registry = ModelRegistry(device=str(dev))
+    registry.install(fit5_model.copy(), version="scratch")
+    with registry.lease() as entry:
+        entry.runner.score(docs)  # a version that has served: its staging ring in use
+    gc.collect()
+    torch.cuda.synchronize()
+    mem_before = torch.cuda.memory_allocated(dev)
+    live_before = live_cuda_tensors(torch)
+    ring = registry.peek().runner._staging.pinned_bytes
+    torch.cuda.reset_peak_memory_stats()
+    REGISTRY.reset()
+    times: dict[str, list[float]] = {}
+    with tempfile.TemporaryDirectory(prefix="refit_smoke_") as tmp, \
+            walls_of(torch, FitAccumulator, ("update", "save", "finalize"), times), \
+            walls_of(torch, ModelRegistry, ("install", "commit"), times):
+        state = f"{tmp}/state"
+        first = AutoRefit(det, registry, state_path=state, refit_every_batches=2,
+                          final_refit=False)
+        table_bytes = first.acc.counts.numel() * first.acc.counts.element_size()
+        p1 = first.run(batches, max_batches=6)
+        ids, rows = first.acc.nonzero_rows()
+        saved = load_fit_state(state)
+        if not (np.array_equal(saved["ids"], ids) and np.array_equal(saved["rows"], rows)
+                and saved["committed"] == 6):
+            fail("refit: the fit state saved after 6 batches does not read back as the "
+                 "accumulator's rows")
+        state_bytes = sum(f.stat().st_size for f in Path(state).rglob("*") if f.is_file())
+        say("refit", f"run 1: {p1.batches} batches, {p1.refits} refits; the saved state "
+            f"reads back with the accumulator's {len(ids)} nonzero rows and token 6 "
+            f"({state_bytes / 1e6:.1f} MB on disk, {rows.nbytes / 1e6:.0f} MB of int64 rows)")
+        del first  # the kill
+        gc.collect()
+        second = AutoRefit(det, registry, state_path=state, refit_every_batches=4)
+        p2 = second.run(batches)
+        gc.collect()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(dev)
+        mem_after = torch.cuda.memory_allocated(dev)
+        live_after = live_cuda_tensors(torch)
+        if p2.resumed_from != 6 or p2.batches != 6:
+            fail(f"refit: the second run resumed from {p2.resumed_from} and consumed "
+                 f"{p2.batches} batches, expected 6 and 6")
+    served = registry.peek()
+    meta = served.describe().get("metadata") or {}
+    if meta.get("refit_token") != 12 or meta.get("docs_seen") != len(texts):
+        fail(f"refit: the served version's metadata is {meta}, expected token 12")
+    sp, dp, hp = served.model.profile, fit5_model.profile, case.model.profile
+    for what, other in (("phase 11's device fit", dp), ("phase 4's host fit", hp)):
+        if not (np.array_equal(sp.ids, other.ids) and np.array_equal(sp.weights, other.weights)):
+            fail(f"refit: the served profile differs from {what}")
+    n_refits = p1.refits + p2.refits
+    collect = REGISTRY.snapshot()["counters"].get("fit/collect_bytes", 0) / n_refits
+    if not 0 < collect < table_bytes / 2:
+        fail(f"refit: fit/collect_bytes per finalize {collect:.0f}, table {table_bytes}")
+    say("refit", f"run 2 resumed from batch {p2.resumed_from}, consumed {p2.batches}; served "
+        f"{served.version} with {meta}: profile ids and float64 weights bit-identical to "
+        f"phase 11's device fit and phase 4's host fit ({len(sp.ids)} grams); "
+        f"fit/collect_bytes per finalize {collect / 1e6:.2f} MB of the {table_bytes / 1e9:.3f} "
+        f"GB table")
+
+    reset_launches()
+    with registry.lease() as entry:
+        got_s, got_l = entry.runner.score(docs), entry.runner.predict_ids(docs)
+    torch.cuda.synchronize()
+    launches = read_launches()["fused_detect"]
+    if launches <= 0:
+        fail("refit: the served model answered without fused_detect")
+    _same("refit: served scores vs the from-scratch model's direct runner", got_s,
+          fit5_model.runner.score(docs))
+    _same("refit: served labels vs phase 4's", got_l, case.ids)
+    retired = [e for e in registry._history if e is not served]
+    if any(e.runner is not None for e in retired):
+        fail("refit: a retired version kept its runner")
+    grew = mem_after - (mem_before + table_bytes)
+
+    def ms(name):
+        v = times.get(name, [])
+        return f"{np.median(v) * 1e3:.1f} (n={len(v)})" if v else "none"
+
+    say("refit", f"timings, median ms: update per batch {ms('update')}, finalize per refit "
+        f"{ms('finalize')}, checkpoint {ms('save')}, install (runner build + prewarm + "
+        f"flip) {ms('install')}, flip {ms('commit')}; peak device memory {peak / 1e9:.2f} GB "
+        f"({smi_line})")
+    new = sorted((v for k, v in live_after.items() if k not in live_before), reverse=True)
+    gone = sorted((v for k, v in live_before.items() if k not in live_after), reverse=True)
+    held = sum(v[0] for v in new) - sum(v[0] for v in gone)
+    say("refit", f"served model: {len(docs)} docs of phase 4, fused_detect launches {launches}, "
+        f"scores bit for bit the from-scratch model's direct runner, labels phase 4's; "
+        f"{len(retired)} retired versions released their runners; device memory allocated "
+        f"{mem_before} B before, {mem_after} B after the last swap: the table "
+        f"({table_bytes} B) {grew:+d} B, staging ring {ring} B; CUDA tensors Python holds: "
+        f"{held:+d} B ({len(new)} new, largest {new[:2]}; {len(gone)} gone)")
+    if held != table_bytes:
+        fail(f"refit: the CUDA tensors held after the last swap grew by {held} B, not by the "
+             f"accumulator's table ({table_bytes} B): a retired version or an old table leaked")
+    if abs(grew) > ring:
+        fail(f"refit: device memory after the last swap is {grew / 1e6:.1f} MB away from "
+             "before + the table, more than one staging ring")
+    del second
+    return launches
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--quick", action="store_true",
@@ -2847,7 +3219,7 @@ def main() -> None:
     with phase_clock("segment3"):
         phase_segment3(torch, dev, model3)
     with phase_clock("fit5"):
-        phase_fit5(torch, dev, fit5_case, smi_line)
+        fit5_model = phase_fit5(torch, dev, fit5_case, smi_line)
     with phase_clock("fit3"):
         phase_fit3(torch, dev, fit3_case, smi_line)
     with phase_clock("persist"):
@@ -2856,6 +3228,10 @@ def main() -> None:
         phase_runner(torch, dev, model, main_docs, main_ids, model3, fit3_case, smi_line)
     with phase_clock("serve"):
         phase_serve(torch, dev, model, main_docs, fit5_case, model3, fit3_case, smi_line)
+    with phase_clock("stream"):
+        stream_launches = phase_stream(torch, dev, smi_line)
+    with phase_clock("refit"):
+        refit_launches = phase_refit(torch, dev, fit5_case, fit5_model, smi_line)
     bad = [k for k in ("jax", "jaxlib", "spark_languagedetector_tpu") if k in sys.modules]
     if bad:
         fail(f"JAX modules were imported: {bad}")
@@ -2866,7 +3242,7 @@ def main() -> None:
         "route": "cuda",
         "source": "spark_languagedetector_tpu_torch/csrc/fused_detect.cu",
         "replaces": "spark_languagedetector_tpu/ops/score_fused.py:308",
-        "launches": launches,
+        "launches": launches + stream_launches + refit_launches,
         "max_abs_err": max(kernel_err, c5_err),
         **times,
     }, segment_entry] + hist_entries}))

@@ -4,8 +4,8 @@ Port of ``spark_languagedetector_tpu.exec.config``. The table holds the
 knobs a module of the port reads, under the JAX package's names, env
 spellings, types and defaults, so one environment configures both packages
 alike. The JAX package's other knobs (fleet, hedging, quarantine, zoo,
-retry budget, scale, cold-start, exporter, multi-process) are listed in
-``ROADMAP.md`` against the work that will bring their readers.
+retry budget, scale, cold-start, trace and peak-rate, multi-process) are
+listed in ``ROADMAP.md`` against the work that will bring their readers.
 
 Every knob resolves here, once, with type validation and a single
 precedence rule:
@@ -82,6 +82,11 @@ KNOBS: dict[str, Knob] = _knobs(
     Knob("dispatch_workers", "LANGDETECT_DISPATCH_WORKERS", "int", None,
          "concurrent dispatch threads for the batch path (unset: 1)",
          positive=True),
+    Knob("stream_prefetch", "LANGDETECT_STREAM_PREFETCH", "int", 0,
+         "streaming batches transformed ahead of the sink"),
+    Knob("stream_workers", "LANGDETECT_STREAM_WORKERS", "int", None,
+         "streaming transform concurrency (unset: min(2, prefetch))",
+         positive=True),
     Knob("pack_threads", "LANGDETECT_PACK_THREADS", "int", None,
          "native packer thread count (unset: auto)", positive=True),
     Knob("device_encode", "LANGDETECT_DEVICE_ENCODE", "bool", False,
@@ -139,6 +144,8 @@ KNOBS: dict[str, Knob] = _knobs(
     Knob("serve_slo_ms", "LANGDETECT_SERVE_SLO_MS", "float", 0.0,
          "estimated-wait shed threshold (0: off)"),
     # --- telemetry --------------------------------------------------------
+    Knob("metrics_sink", "LANGDETECT_METRICS_SINK", "str", None,
+         "metrics sink spec (jsonl:<path> / prometheus:<path>)"),
     Knob("telemetry_fence", "LANGDETECT_TELEMETRY_FENCE", "bool", False,
          "fence spans on device completion"),
     Knob("flight_recorder", "LANGDETECT_FLIGHT_RECORDER", "str", None,

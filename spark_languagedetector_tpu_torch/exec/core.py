@@ -13,8 +13,9 @@ Port of ``spark_languagedetector_tpu.exec.core``:
     filled batch);
   * :func:`run_ordered` — the serial-or-threaded plan executor under the
     runner's dispatch loop;
-  * :func:`ordered_prefetch` — the bounded, ordered one-thread pipeline
-    under the fit's packer;
+  * :func:`ordered_prefetch` — the bounded, ordered pipeline under the
+    fit's packer (one worker) and the streaming engine (``workers``
+    transforms in flight);
   * :func:`guarded_dispatch` — the breaker-gated fast path + classified retry
     + degraded-ladder hand-off the runner's dispatch rides;
   * :class:`AdmissionQueue` — priority lanes, bounded rows, flush-window
@@ -156,19 +157,44 @@ def run_ordered(plan: Sequence, fn: Callable, workers: int) -> list:
     return [fn(item) for item in plan]
 
 
-def ordered_prefetch(it: Iterable, fn: Callable, depth: int) -> Iterator:
-    """Yield ``fn(item)`` for every item of ``it``, in source order,
-    computed on one worker thread that runs up to ``depth`` items ahead of
-    the one yielded (an exception of ``fn`` raises at its item's turn).
+def ordered_prefetch(
+    it: Iterable,
+    fn: Callable,
+    *,
+    depth: int = 0,
+    workers: int = 1,
+    abort_wait: bool = True,
+) -> Iterator[tuple[object, Callable, bool, int]]:
+    """Bounded, ordered producer/consumer pipeline over ``it``.
 
-    Closing the generator cancels work not yet started and returns without
-    joining a worker that may be stuck: a copy wedged on a dead link must
-    not turn a fit abort into a hang.
+    Yields ``(item, thunk, prefetched, pending)`` per source item, in
+    source order; ``thunk()`` returns (or raises) ``fn(item)``'s result.
+    With ``depth == 0`` nothing runs ahead — ``thunk`` computes inline
+    when called (the caller keeps its synchronous semantics and its own
+    spans/timers around the call). With ``depth > 0``, up to ``depth``
+    items beyond the yielded one are in flight on ``workers`` threads,
+    and items are pulled from ``it`` at most ``depth + 1`` ahead of the
+    consumer — a consuming source (Kafka) never loses more than the
+    pipeline depth on a crash.
+
+    ``pending`` counts the in-flight items *including* the yielded one
+    (the streaming engine's queue-depth signal). Closing the generator
+    cancels not-yet-started work; with ``abort_wait`` (the default) it
+    also joins the pool, so a consumer exception leaves no worker behind
+    and the next run's launches can't interleave with a leftover one's
+    (the streaming engine's choice). ``abort_wait=False`` returns without
+    joining a possibly wedged worker (the fit packer's choice: a copy
+    stuck on a dead link must not turn a fit abort into a hang; the
+    orphan is joined at interpreter exit).
     """
+    it = iter(it)
+    if depth <= 0:
+        for item in it:
+            yield item, (lambda item=item: fn(item)), False, 1
+        return
     from concurrent.futures import ThreadPoolExecutor
 
-    it = iter(it)
-    ex = ThreadPoolExecutor(max_workers=1)
+    ex = ThreadPoolExecutor(max_workers=max(1, workers))
     in_flight: deque = deque()
     drained = False
     try:
@@ -178,15 +204,17 @@ def ordered_prefetch(it: Iterable, fn: Callable, depth: int) -> Iterator:
                     item = next(it)
                 except StopIteration:
                     break
-                in_flight.append(ex.submit(fn, item))
+                in_flight.append((item, ex.submit(fn, item)))
             if not in_flight:
                 drained = True
                 return
-            yield in_flight.popleft().result()
+            pending = len(in_flight)
+            item, fut = in_flight.popleft()
+            yield item, fut.result, True, pending
     finally:
-        ex.shutdown(wait=drained, cancel_futures=True)
-        # Drop queued futures now: they may hold pinned host buffers the
-        # caller expects released when the generator closes.
+        ex.shutdown(wait=drained or abort_wait, cancel_futures=True)
+        # Drop queued (item, future) pairs now: they may hold pinned host
+        # buffers the caller expects released when the generator closes.
         in_flight.clear()
 
 

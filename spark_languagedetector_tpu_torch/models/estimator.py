@@ -49,10 +49,29 @@ from ..ops.vocab import (
 )
 from ..segment import SegmentOptions, segment_documents
 from ..segment.calibrate import Calibration, fit_calibration, normalize_scores
+from ..telemetry import flightrec, span, trace_request
 from ..utils.device import resolve_device
+from ..utils.logging import get_logger, log_event
 from .profile import GramProfile
 
+_log = get_logger("models.estimator")
+
 RESULT_MODES = ("label", "segment")
+
+
+def _run_fit(fn, *, site: str, rows: int, **span_attrs):
+    """``fn()`` under one request trace, the root ``fit`` span (the count,
+    finalize and collect spans nest under it) and the env-tuned retry
+    policy at ``site``; a raise dumps the flight recorder first."""
+    from ..resilience.policy import RetryPolicy
+
+    policy = RetryPolicy.from_env()
+    try:
+        with trace_request(), span("fit", rows=rows, **span_attrs):
+            return policy.run(fn, site=site, log_fields={"rows": rows})
+    except Exception as e:
+        flightrec.record_crash("fit", e)
+        raise
 
 
 def _positive_int(v) -> bool:
@@ -305,15 +324,63 @@ class LanguageDetector(_DetectorParams):
         spec = self._vocab_spec()
         docs = texts_to_bytes(texts.tolist(), self.get("trainEncoding"))
         lang_idx = np.asarray([lang_to_idx[l] for l in label_list])
-        ids, weights = self._fit_profile(spec, docs, lang_idx, len(supported), device)
+        # Each attempt builds its count table from scratch, so a replay of
+        # the whole fit is exact.
+        ids, weights = _run_fit(
+            lambda: self._fit_profile(spec, docs, lang_idx, len(supported), device),
+            site="fit/count", rows=dataset.num_rows,
+            backend=self.get("fitBackend"), languages=len(supported),
+        )
         profile = GramProfile(
             spec=spec, languages=tuple(supported), ids=ids, weights=weights
+        )
+        log_event(
+            _log, "fit.done", rows=dataset.num_rows, grams=profile.num_grams,
+            languages=len(supported),
         )
         save_path = self.get("saveGrams")
         if save_path is not None:
             from ..persist.io import save_gram_dump
 
             save_gram_dump(save_path, profile)
+        return self._build_model(profile)
+
+    # -- incremental refit -----------------------------------------------------
+    def accumulator(self):
+        """An empty incremental-fit accumulator configured exactly like this
+        estimator's device fit (spec, languages, weight mode, profile size,
+        encoding, batch rows, device). Feed it batches with
+        ``acc.update(table)`` — the count path ``fit`` uses — then
+        :meth:`fit_from_accumulator`. See :mod:`.refit`."""
+        from .refit import FitAccumulator
+
+        return FitAccumulator.for_estimator(self)
+
+    def fit_from_accumulator(self, acc) -> "LanguageDetectorModel":
+        """Model from an accumulated count table: re-runs only the finalize
+        (weighting, top-k, winners' collect), bit-identical to ``fit`` on
+        the concatenation of every batch the accumulator has seen. The
+        accumulator must have been built under this estimator's exact fit
+        configuration, and every supported language must have coverage."""
+        if not acc.matches_estimator(self):
+            raise ValueError(
+                "accumulator state does not match this estimator's fit "
+                "configuration (vocab spec / languages / weightMode / "
+                "languageProfileSize); refit needs the exact fit setup "
+                "its counts were accumulated under"
+            )
+        # The finalize only reads the count table, so it replays exactly.
+        ids, weights = _run_fit(
+            acc.finalize, site="fit/finalize", rows=acc.docs_seen,
+            backend="device", incremental=True, languages=len(acc.languages),
+        )
+        profile = GramProfile(
+            spec=acc.spec, languages=acc.languages, ids=ids, weights=weights
+        )
+        log_event(
+            _log, "refit.done", rows=acc.docs_seen, grams=profile.num_grams,
+            languages=len(acc.languages), committed=acc.committed,
+        )
         return self._build_model(profile)
 
     def _fit_profile(self, spec, docs, lang_idx, num_langs: int, device):

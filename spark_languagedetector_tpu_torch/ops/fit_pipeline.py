@@ -284,9 +284,12 @@ def iter_device_batches(
             sp.fence(*dev.values())
         return form, dev, rows, pad_to
 
-    pipeline = ordered_prefetch(plan, pack_one, FIT_PIPELINE_DEPTH)
+    pipeline = ordered_prefetch(
+        plan, pack_one, depth=FIT_PIPELINE_DEPTH, abort_wait=False
+    )
     try:
-        for form, dev, rows, pad_to in pipeline:
+        for _, packed, _, _ in pipeline:
+            form, dev, rows, pad_to = packed()
             if form == "wire":
                 batch = encode_batch(dev["wire"], dev["starts"], dev["lengths"], pad_to)
             elif form == "ragged":

@@ -14,8 +14,12 @@ Only the winners' count rows come back to the host, and their weights are
 recomputed there in float64 from the exact integer counts, so the profile
 is bit-identical to :func:`.fit.fit_profile_numpy`'s.
 
-The JAX package's mesh fit and its sharded finalize, the fit's telemetry
-spans, fault injection and retry policy are not part of this module.
+The stages record the JAX package's spans: ``fit/count`` around the count
+pass (with the ``fit/count`` fault site at every count step),
+``fit/finalize`` around the weighting and top-k, and ``fit/collect`` around
+the winners' copy to the host, whose bytes add to the ``fit/collect_bytes``
+counter and the ``langdetect_fit_collect_bytes`` gauge. The JAX package's
+mesh fit and its sharded finalize are not part of this module.
 """
 
 from __future__ import annotations
@@ -23,6 +27,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..resilience import faults
+from ..telemetry import REGISTRY, span
 from ..utils.device import resolve_device
 from ..utils.logging import get_logger, log_event
 from .vocab import EXACT, VocabSpec, partial_window_ids, window_ids
@@ -244,23 +250,35 @@ def accumulate_counts(
     """One pipelined counting pass on the table's device, ``counts +=
     counts(byte_docs)``: plan, pack and copy ahead (:mod:`.fit_pipeline`),
     count each batch. The windows chunk-splitting severed and the caller's
-    ``extra_counts`` (ids, langs, counts) are added once at the end."""
+    ``extra_counts`` (ids, langs, counts) are added once at the end.
+
+    The table is updated in place, so a pass that raises leaves it partly
+    updated (the incremental refit's accumulator treats that as poisoned).
+    """
     from .fit_pipeline import iter_device_batches, plan_fit_batches
 
     device = counts.device
     items, item_langs, plan, straddle, item_mult = plan_fit_batches(
         byte_docs, lang_arr, spec, batch_rows=batch_rows
     )
-    batches = iter_device_batches(
-        items, item_langs, plan, item_mult=item_mult, device=device
-    )
-    try:
-        for batch, lengths, langs, mult, _, _ in batches:
-            counts = fit_dense_step(
-                batch, lengths, langs, counts, mult, spec=spec, num_langs=num_langs
-            )
-    finally:
-        batches.close()
+    with span(
+        "fit/count", docs=len(byte_docs), backend="device", shards=1,
+        batches=len(plan),
+    ) as count_span:
+        batches = iter_device_batches(
+            items, item_langs, plan, item_mult=item_mult, device=device
+        )
+        try:
+            for batch, lengths, langs, mult, _, _ in batches:
+                faults.inject("fit/count")  # chaos: one call per count step
+                counts = fit_dense_step(
+                    batch, lengths, langs, counts, mult, spec=spec, num_langs=num_langs
+                )
+        finally:
+            # A failed step stops the packer before the error leaves, so a
+            # replay of the fit starts from a clean slate.
+            batches.close()
+        count_span.fence(counts)
     extras = [e for e in (straddle, extra_counts) if e is not None]
     if extras:
         e_ids, e_langs, e_counts = (
@@ -289,29 +307,44 @@ def finalize_counts(
     blocked walk past :data:`TOPK_SORT_BUDGET_ELEMS` elements); only the
     winners' ids and int32 count rows cross to the host, where their
     weights are recomputed in float64 exactly as the host fit computes
-    them.
+    them. The bytes that cross (the ``[L, k]`` winner ids and the winners'
+    count rows, not the ``V·L·4`` table) add to the ``fit/collect_bytes``
+    counter and set the ``langdetect_fit_collect_bytes`` gauge.
     """
     V = int(counts.shape[0])
     k = min(profile_size, V)
-    if V * num_langs > TOPK_SORT_BUDGET_ELEMS:
-        top = finalize_topk_blocked(counts, weight_mode=weight_mode, k=k)
-    else:
-        top = top_k_rows(masked_candidate_weights(counts, weight_mode=weight_mode), k=k)
+    with span("fit/finalize", backend="device", k=k, vocab=V, shards=1) as fin_span:
+        if V * num_langs > TOPK_SORT_BUDGET_ELEMS:
+            top = finalize_topk_blocked(counts, weight_mode=weight_mode, k=k)
+        else:
+            top = top_k_rows(masked_candidate_weights(counts, weight_mode=weight_mode), k=k)
+        fin_span.fence(top)
     top_np = np.unique(top.cpu().numpy().reshape(-1))
     top_np = top_np[top_np < V]  # blocked-walk sentinels
-    counts_sel = counts[torch.from_numpy(top_np).to(counts.device)].cpu().numpy()
-    counts_sel = counts_sel.astype(np.int64)
-    occurred = counts_sel.sum(axis=1) > 0
-    rows = top_np[occurred]  # dense row index == gram id
-    counts_rows = counts_sel[occurred]
-    if weight_mode == "parity":
-        present = counts_rows > 0
-        nlangs = present.sum(axis=1, keepdims=True)
-        ratio = np.where(present, 1.0 / np.maximum(nlangs, 1), 0.0)
-    else:
-        totals = counts_rows.sum(axis=1, keepdims=True)
-        ratio = counts_rows / np.maximum(totals, 1)
-    return rows.astype(np.int64), np.log1p(ratio.astype(np.float64))
+    with span("fit/collect", winners=int(top_np.size)) as col_span:
+        counts_sel_dev = counts[torch.from_numpy(top_np).to(counts.device)]
+        counts_sel = counts_sel_dev.cpu().numpy().astype(np.int64)
+        collect_bytes = (
+            top.numel() * top.element_size()
+            + counts_sel_dev.numel() * counts_sel_dev.element_size()
+        )
+        col_span.set(bytes=collect_bytes, table_bytes=V * num_langs * 4)
+        REGISTRY.incr("fit/collect_bytes", collect_bytes)
+        REGISTRY.set_gauge(
+            "langdetect_fit_collect_bytes", float(collect_bytes), program="fit/collect"
+        )
+        occurred = counts_sel.sum(axis=1) > 0
+        rows = top_np[occurred]  # dense row index == gram id
+        counts_rows = counts_sel[occurred]
+        if weight_mode == "parity":
+            present = counts_rows > 0
+            nlangs = present.sum(axis=1, keepdims=True)
+            ratio = np.where(present, 1.0 / np.maximum(nlangs, 1), 0.0)
+        else:
+            totals = counts_rows.sum(axis=1, keepdims=True)
+            ratio = counts_rows / np.maximum(totals, 1)
+        weights = np.log1p(ratio.astype(np.float64))
+    return rows.astype(np.int64), weights
 
 
 def fit_profile_device(

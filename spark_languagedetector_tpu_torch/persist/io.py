@@ -1,7 +1,9 @@
 """Model persistence: the JAX package's parquet layout, read and written.
 
 Port of ``spark_languagedetector_tpu.persist.io`` (``save_model``,
-``load_model``, ``save_gram_dump``). A model directory holds
+``load_model``, ``save_gram_dump``, and the incremental fit's
+``save_fit_state``/``recover_fit_state``/``load_fit_state``). A model
+directory holds
 
     <path>/metadata/part-00000  one JSON line: class, uid, paramMap, and
                                 (native layout) vocab, languages, optional
@@ -84,10 +86,15 @@ def swap_in(tmp: Path, root: Path) -> None:
         raise
     if backup is not None:
         shutil.rmtree(backup)
-    for stale in list(root.parent.glob(f".{root.name}.tmp.*")) + list(
-        root.parent.glob(f".{root.name}.old.*")
-    ):
+    for stale in _siblings(root):
         shutil.rmtree(stale, ignore_errors=True)
+
+
+def _siblings(root: Path) -> list[Path]:
+    """The ``.tmp``/``.old`` siblings a save of ``root`` builds or keeps."""
+    return list(root.parent.glob(f".{root.name}.tmp.*")) + list(
+        root.parent.glob(f".{root.name}.old.*")
+    )
 
 
 def fresh_tmp(root: Path) -> Path:
@@ -341,6 +348,169 @@ def load_model(path: str | Path) -> tuple[GramProfile, str, dict, dict | None]:
     if meta.get("class") == _SPARK_CLASS_NAME:
         params = {"params": params}
     return profile, meta["uid"], params, meta.get("calibration")
+
+
+# The incremental fit's state directory (:mod:`..models.refit`). The class
+# string is the JAX package's, as data: its loader checks it (its
+# persist/io.py:625-628), so a state saved by either package loads in the
+# other.
+_FIT_STATE_CLASS = "spark_languagedetector_tpu.models.refit.FitAccumulator"
+FIT_STATE_VERSION = 1
+
+
+def save_fit_state(
+    path: str | Path,
+    *,
+    spec: VocabSpec,
+    languages,
+    weight_mode: str,
+    profile_size: int,
+    train_encoding: str,
+    label_col: str,
+    input_col: str,
+    batch_rows: int | None,
+    committed: int,
+    docs_seen: int,
+    lang_docs,
+    ids: np.ndarray,
+    rows: np.ndarray,
+) -> None:
+    """Persist an incremental-fit count accumulator (the fit's sufficient
+    statistic) as a checkpoint directory.
+
+    ``metadata/part-00000`` is one JSON line (spec, languages, weight mode,
+    profile size, per-language doc coverage, and the resume token
+    ``committed`` — the number of source batches whose counts the table
+    already contains); ``counts/`` is parquet of the nonzero table rows
+    (``id`` int64, ``counts`` list<int64> per language), so a 2^20 x 176
+    table with a few hundred thousand occurring grams stores those rows,
+    not the 738 MB dense form.
+
+    Crash-atomic like a model save: the tree is built under a temp sibling
+    and swapped in with two renames (:func:`swap_in`). The token travels
+    inside the state, so counts and token never commit separately.
+    """
+    import pyarrow as pa
+
+    root = Path(path)
+    meta = {
+        "class": _FIT_STATE_CLASS,
+        "version": FIT_STATE_VERSION,
+        "timestamp": int(time.time() * 1000),
+        "vocab": {
+            "mode": spec.mode,
+            "gramLengths": list(spec.gram_lengths),
+            "hashBits": spec.hash_bits,
+            "hashScheme": spec.hash_scheme,
+        },
+        "languages": list(languages),
+        "weightMode": weight_mode,
+        "profileSize": int(profile_size),
+        # Part of the statistic: the same corpus under another text→bytes
+        # encoding counts other grams.
+        "trainEncoding": train_encoding,
+        "labelCol": label_col,
+        "inputCol": input_col,
+        "fitBatchRows": batch_rows,
+        "committed": int(committed),
+        "docsSeen": int(docs_seen),
+        "langDocs": [int(c) for c in lang_docs],
+    }
+    tmp = fresh_tmp(root)
+    try:
+        meta_dir = tmp / "metadata"
+        meta_dir.mkdir()
+        (meta_dir / "part-00000").write_text(json.dumps(meta) + "\n")
+        ids_np = np.ascontiguousarray(np.asarray(ids, dtype=np.int64))
+        rows_np = np.asarray(rows, dtype=np.int64).reshape(len(ids_np), len(meta["languages"]))
+        _write_parquet(
+            tmp / "counts",
+            pa.table({"id": pa.array(ids_np), "counts": _list_column(rows_np, pa.int64())}),
+        )
+    except BaseException:
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise
+    swap_in(tmp, root)
+    log_event(
+        _log, "fit_state.saved", path=str(root), committed=int(committed),
+        nonzero_rows=int(len(ids_np)),
+    )
+
+
+def recover_fit_state(path: str | Path) -> bool:
+    """Finish a checkpoint swap a crash interrupted; True when recovered.
+
+    Killed between "root renamed aside" and "tmp renamed in", the path
+    holds no state: it lives complete in a ``.<name>.tmp.<pid>`` (new) or
+    ``.<name>.old.<pid>`` (previous) sibling. When ``path`` is missing,
+    this promotes the newest candidate (by mtime) that fully loads — a
+    kill mid-build can leave a torn tmp whose metadata parses but whose
+    counts are missing, so :func:`load_fit_state` is the guard. Other
+    siblings are deleted only after a candidate was promoted. No-op when
+    ``path`` exists.
+    """
+    root = Path(path)
+    if root.exists():
+        return False
+    for cand in sorted(_siblings(root), key=lambda p: p.stat().st_mtime, reverse=True):
+        try:
+            state = load_fit_state(cand)
+        except Exception:
+            continue  # torn or foreign candidate: never promote it
+        os.replace(cand, root)
+        for stale in _siblings(root):
+            shutil.rmtree(stale, ignore_errors=True)
+        log_event(
+            _log, "fit_state.recovered", path=str(root), source=cand.name,
+            committed=state["committed"],
+        )
+        return True
+    return False
+
+
+def load_fit_state(path: str | Path) -> dict:
+    """Read a persisted fit accumulator → dict with the metadata fields of
+    :func:`save_fit_state` plus ``spec`` (a VocabSpec), ``ids`` (int64 [R])
+    and ``rows`` (int64 [R, L]) sparse count rows."""
+    root = Path(path)
+    meta = json.loads((root / "metadata" / "part-00000").read_text().splitlines()[0])
+    if meta.get("class") != _FIT_STATE_CLASS:
+        raise ValueError(
+            f"metadata class mismatch: expected {_FIT_STATE_CLASS}, got "
+            f"{meta.get('class')}"
+        )
+    vocab = meta["vocab"]
+    spec = VocabSpec(
+        vocab["mode"],
+        tuple(int(n) for n in vocab["gramLengths"]),
+        hash_bits=vocab.get("hashBits", 20),
+        hash_scheme=vocab.get("hashScheme", "fnv1a"),
+    )
+    table = _read_parquet(root / "counts")
+    L = len(meta["languages"])
+    ids = table["id"].combine_chunks().to_numpy(zero_copy_only=False).astype(np.int64, copy=False)
+    flat = table["counts"].combine_chunks().flatten().to_numpy(zero_copy_only=False)
+    if len(flat) != len(ids) * L:
+        raise ValueError(
+            f"count rows carry {len(flat)} values for {len(ids)} grams, "
+            f"metadata says {L} languages"
+        )
+    rows = flat.astype(np.int64, copy=False).reshape(len(ids), L)
+    return {
+        "spec": spec,
+        "languages": tuple(meta["languages"]),
+        "weight_mode": meta["weightMode"],
+        "profile_size": int(meta["profileSize"]),
+        "train_encoding": meta.get("trainEncoding", "utf8"),
+        "label_col": meta.get("labelCol", "lang"),
+        "input_col": meta.get("inputCol", "fulltext"),
+        "batch_rows": meta.get("fitBatchRows"),
+        "committed": int(meta["committed"]),
+        "docs_seen": int(meta["docsSeen"]),
+        "lang_docs": [int(c) for c in meta["langDocs"]],
+        "ids": ids,
+        "rows": rows,
+    }
 
 
 def save_gram_dump(path: str | Path, profile: GramProfile) -> None:

@@ -1,8 +1,7 @@
 """Resilience of the port's runner: retry policies, circuit breaking and a
 deterministic chaos layer.
 
-Port of ``spark_languagedetector_tpu.resilience`` (the dead-letter queue of
-the streaming engine is not ported yet):
+Port of ``spark_languagedetector_tpu.resilience``:
 
   * :mod:`.policy` — :class:`RetryPolicy` (bounded attempts, deterministic
     seeded backoff, per-attempt deadlines, a classifier that refuses
@@ -10,7 +9,9 @@ the streaming engine is not ported yet):
     and :class:`CircuitBreaker`;
   * :mod:`.faults` — :class:`FaultPlan` (env ``LANGDETECT_FAULT_PLAN`` or
     :func:`faults.plan_scope`) injects failures and latency at named sites
-    with a seeded schedule, so every recovery path runs on the CPU.
+    with a seeded schedule, so every recovery path runs on the CPU;
+  * :mod:`.dlq` — :class:`DeadLetterQueue`, the quarantine the streaming
+    engine (:mod:`..stream.microbatch`) bisects poison rows into.
 
 The runner (:mod:`..api.runner`) layers the breaker-gated degradation
 ladder on top: fast path → device gather → host gather, exact at every rung,
@@ -19,7 +20,8 @@ wherever the path launches no CUDA kernel.
 
 from __future__ import annotations
 
-from .faults import FaultPlan, InjectedFault
+from .dlq import DeadLetterQueue
+from .faults import FaultPlan, InjectedFault, PoisonRowError, PoisonText
 from .policy import (
     BreakerOpen,
     CircuitBreaker,
@@ -31,9 +33,12 @@ from .policy import (
 __all__ = [
     "BreakerOpen",
     "CircuitBreaker",
+    "DeadLetterQueue",
     "DeadlineExceeded",
     "FaultPlan",
     "InjectedFault",
+    "PoisonRowError",
+    "PoisonText",
     "RetryPolicy",
     "is_retryable",
 ]

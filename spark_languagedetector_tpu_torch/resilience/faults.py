@@ -36,8 +36,7 @@ choices. Every other entry is ``site:kind[=value][@calls][%prob]``:
 
 Sites: the table :data:`SITES` is the JAX package's, whole, so a plan that
 parses in one package parses in the other and fires on the same calls. The
-port instruments three of them so far, all in the runner
-(:mod:`..api.runner`):
+port instruments these so far:
 
   * ``score/dispatch`` — each padded or ragged batch's dispatch, each segment
     dispatch, and the degradation ladder's device-gather rung (it is still
@@ -45,7 +44,13 @@ port instruments three of them so far, all in the runner
   * ``score/fetch``    — each batch's result fetch;
   * ``score/pack``     — each wire build of the device-encode path: a firing
     ``error`` fails the wire form before anything ships, so the ladder
-    falls to the host-pack rung — scores stay bit-identical.
+    falls to the host-pack rung — scores stay bit-identical;
+  * ``serve/admit``, ``serve/cache`` — the serving batcher and score cache;
+  * ``stream/batch``   — each streamed batch's transform attempt
+    (``error``/``delay``) and each pulled source batch (``poison``, through
+    :func:`corrupt_batch`), in :mod:`..stream.microbatch`;
+  * ``fit/count``      — each count step of the device fit's pass
+    (:func:`..ops.fit_tpu.accumulate_counts`).
 
 The other sites fire nowhere in the port until their modules are ported.
 """
@@ -94,6 +99,26 @@ _U64 = (1 << 64) - 1
 class InjectedFault(RuntimeError):
     """Injected failure (a RuntimeError subclass, so the retry classifier
     treats it as a transient device fault)."""
+
+
+class PoisonRowError(ValueError):
+    """Deterministic failure a poison row raises when encoded for scoring.
+
+    A ``ValueError`` on purpose: the classifier must route it to the
+    DLQ/raise path, never to a futile replay.
+    """
+
+
+class PoisonText(str):
+    """A poisoned document: equal to the original text (str subclass, so
+    schema checks and comparisons pass) but impossible to encode — every
+    scoring path goes through ``text_to_bytes``, which calls ``encode``.
+    """
+
+    def encode(self, *args, **kwargs):  # noqa: D102 - poison contract
+        raise PoisonRowError(
+            f"injected poison row ({len(self)} chars): cannot encode"
+        )
 
 
 def _mix(*parts: int) -> float:
@@ -321,6 +346,33 @@ def inject(site: str) -> None:
             raise InjectedFault(
                 f"INTERNAL: injected fault at {site} (call {call})"
             )
+
+
+def corrupt_batch(table, column: str | None, site: str = "stream/batch"):
+    """Chaos hook for ``poison`` faults on one pulled source batch.
+
+    Returns ``(table, poisoned_row_indices)`` — the table unchanged when
+    nothing fires. Poisoned rows keep their text value (:class:`PoisonText`
+    is a str subclass) but fail deterministically when the scoring path
+    encodes them, which is what drives the engine's bisect → DLQ flow. The
+    call counter advances once per pulled batch (whatever the column), as
+    in the JAX package, so one plan poisons the same batches in both.
+    """
+    plan = _plan
+    if plan is None:
+        return table, []
+    call = _next_call(site, "poison")
+    if column is None or column not in table.schema:
+        return table, []
+    rows = plan.poison_rows(call, table.num_rows)
+    if not rows:
+        return table, []
+    values = list(table.column(column))
+    for i in rows:
+        values[i] = PoisonText(values[i])
+    REGISTRY.incr("resilience/faults_injected")
+    log_event(_log, "faults.poisoned", site=site, call=call, rows=rows)
+    return table.replace_column(column, values), rows
 
 
 # Env-armed at import, like the telemetry sinks: every instrumented module

@@ -45,10 +45,10 @@ class ModelVersion:
 
     __slots__ = (
         "version", "model", "runner", "languages", "source",
-        "installed_at", "inflight", "retired",
+        "installed_at", "inflight", "retired", "metadata",
     )
 
-    def __init__(self, version, model, runner, source):
+    def __init__(self, version, model, runner, source, metadata=None):
         self.version = version
         self.model = model
         self.runner = runner
@@ -57,9 +57,10 @@ class ModelVersion:
         self.installed_at = time.time()
         self.inflight = 0
         self.retired = False
+        self.metadata = dict(metadata) if metadata else None
 
     def describe(self) -> dict:
-        return {
+        out = {
             "version": self.version,
             "uid": self.model.uid,
             "languages": len(self.languages),
@@ -72,6 +73,9 @@ class ModelVersion:
             "inflight": self.inflight,
             "retired": self.retired,
         }
+        if self.metadata:
+            out["metadata"] = dict(self.metadata)
+        return out
 
 
 class PreparedVersion:
@@ -79,13 +83,14 @@ class PreparedVersion:
     path, not yet serving-visible. :meth:`ModelRegistry.commit` flips it
     in; dropping it aborts (nothing was installed)."""
 
-    __slots__ = ("model", "runner", "version", "source")
+    __slots__ = ("model", "runner", "version", "source", "metadata")
 
-    def __init__(self, model, runner, version, source):
+    def __init__(self, model, runner, version, source, metadata=None):
         self.model = model
         self.runner = runner
         self.version = version
         self.source = source
+        self.metadata = metadata
 
 
 class ModelRegistry:
@@ -114,34 +119,59 @@ class ModelRegistry:
 
     # ------------------------------------------------------------ swaps -----
     @staticmethod
-    def _warm_runner(model):
-        """``model.runner``, prewarmed: the library of every kernel its
-        strategy can launch loaded (a missing build happens here, never
-        inside the dispatcher) and the probe documents scored."""
+    def _warm_runner(model, prewarm: bool = True):
+        """``model.runner``, built; with ``prewarm``, also the library of
+        every kernel its strategy can launch loaded (a missing build
+        happens here, never inside the dispatcher) and the probe documents
+        scored."""
         runner = model.runner
-        for kernel in runner.kernels():
-            kernel.library()
-        runner.score(list(DEFAULT_PREWARM_DOCS))
+        if prewarm:
+            for kernel in runner.kernels():
+                kernel.library()
+            runner.score(list(DEFAULT_PREWARM_DOCS))
         return runner
 
     def prepare(
-        self, model, *, version: str | None = None, source: str | None = None
+        self,
+        model,
+        *,
+        version: str | None = None,
+        prewarm: bool = True,
+        source: str | None = None,
+        metadata: dict | None = None,
     ) -> PreparedVersion:
-        """Phase 1 of a swap: build ``model``'s runner and prewarm it, off
-        the serving path. Raises on any build or prewarm failure, with
-        nothing serving-visible changed. Version-name conflicts are checked
-        at :meth:`commit`."""
-        return PreparedVersion(model, self._warm_runner(model), version, source)
+        """Phase 1 of a swap: build ``model``'s runner and (``prewarm``)
+        warm it, off the serving path. Raises on any build or prewarm
+        failure, with nothing serving-visible changed. Version-name
+        conflicts are checked at :meth:`commit`."""
+        return PreparedVersion(
+            model, self._warm_runner(model, prewarm), version, source, metadata
+        )
 
     def install(
-        self, model, *, version: str | None = None, source: str | None = None
+        self,
+        model,
+        *,
+        version: str | None = None,
+        prewarm: bool = True,
+        source: str | None = None,
+        metadata: dict | None = None,
     ) -> str:
         """Register ``model`` and atomically make it the serving version
         (:meth:`prepare`, then :meth:`commit`). Returns the version name
         (auto ``v1``, ``v2``, … when not given). The previously active
         version is drained (bounded by ``drain_timeout_s``) and retired,
-        kept in history for :meth:`rollback`."""
-        return self.commit(self.prepare(model, version=version, source=source))
+        kept in history for :meth:`rollback`.
+
+        ``metadata``: a provenance dict that ``describe()``/``versions()``
+        report — ``AutoRefit`` stamps its refit token and the
+        documents seen here, so an operator can tell which accumulated
+        corpus a serving version was finalized from.
+        """
+        return self.commit(self.prepare(
+            model, version=version, prewarm=prewarm, source=source,
+            metadata=metadata,
+        ))
 
     def commit(self, prepared: PreparedVersion) -> str:
         """Phase 2 of a swap: atomically flip the serving pointer to a
@@ -158,7 +188,10 @@ class ModelRegistry:
                     version = f"v{self._counter}"
                 if any(e.version == version for e in self._history):
                     raise ServeError(f"version {version!r} already registered")
-                entry = ModelVersion(version, prepared.model, prepared.runner, prepared.source)
+                entry = ModelVersion(
+                    version, prepared.model, prepared.runner, prepared.source,
+                    prepared.metadata,
+                )
                 old = None if self._active_idx is None else self._history[self._active_idx]
                 self._history.append(entry)
                 self._active_idx = idx = len(self._history) - 1

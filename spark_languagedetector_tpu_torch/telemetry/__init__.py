@@ -15,14 +15,23 @@ runner itself calls:
         python -m spark_languagedetector_tpu_torch.telemetry.tracing events.jsonl [out.json]
 
   * :mod:`.flightrec` — a bounded ring of recent events, dumped as a JSONL
-    post-mortem when a score call raises (``LANGDETECT_FLIGHT_RECORDER``).
+    post-mortem when a score, fit or stream call raises
+    (``LANGDETECT_FLIGHT_RECORDER``);
+  * :mod:`.export` — the JSONL event sink and the Prometheus text-format
+    snapshot writer, attached from ``LANGDETECT_METRICS_SINK`` at import.
 
-Exporters, device gauges, cost models, fleet aggregation, SLOs and the
+Device gauges, cost models, fleet aggregation, SLOs and the
 report/compare/stitch CLIs are not ported yet.
 """
 
 from __future__ import annotations
 
+from .export import (
+    SINK_ENV,
+    configure_sinks_from_env,
+    render_prometheus,
+    write_prometheus,
+)
 from .flightrec import FLIGHT_ENV
 from .registry import REGISTRY, Histogram, Registry
 from .spans import FENCE_ENV, Span, current_span, span
@@ -34,18 +43,38 @@ __all__ = [
     "Histogram",
     "REGISTRY",
     "Registry",
+    "SINK_ENV",
     "Span",
+    "configure_sinks_from_env",
     "current_span",
     "current_trace_id",
     "new_trace_id",
+    "render_prometheus",
     "span",
     "trace_request",
+    "write_prometheus",
 ]
 
+# Attach the exporters declared in the environment once, at import: every
+# instrumented module imports this package, so a process that sets
+# LANGDETECT_METRICS_SINK gets its sinks without any code change. A bad
+# value (unknown kind, unwritable path) degrades to a loud warning rather
+# than an ImportError — a metrics env var must never take down scoring.
+# Calling configure_sinks_from_env directly still raises.
+try:
+    configure_sinks_from_env(REGISTRY)
+except Exception as _e:
+    import warnings as _warnings
+
+    _warnings.warn(
+        f"{SINK_ENV} ignored — could not attach metric sinks: {_e}",
+        RuntimeWarning,
+        stacklevel=2,
+    )
+
 # The flight recorder is env-armed at import (its ring only buffers in
-# memory; disk is touched solely on a crash dump). A bad value degrades to
-# a warning rather than an ImportError; calling install_from_env directly
-# still raises.
+# memory; disk is touched solely on a crash dump), with the same
+# degrade-to-a-warning contract.
 try:
     from .flightrec import install_from_env as _flightrec_install
 

@@ -15,6 +15,7 @@ package's.
 """
 
 import threading
+import time
 from pathlib import Path
 
 import numpy as np
@@ -94,18 +95,22 @@ def test_run_ordered_raises_the_failing_item():
 
 # ------------------------------------------------------- ordered prefetch ---
 def test_ordered_prefetch_orders_results_and_bounds_pulls():
-    pulled = []
+    for depth, workers in ((0, 1), (3, 1), (3, 4)):
+        pulled = []
 
-    def src():
-        for i in range(20):
-            pulled.append(i)
-            yield i
+        def src():
+            for i in range(20):
+                pulled.append(i)
+                yield i
 
-    out = []
-    for k, result in enumerate(core.ordered_prefetch(src(), lambda i: i * i, 3)):
-        assert len(pulled) <= k + 1 + 3  # never more than depth + 1 ahead
-        out.append(result)
-    assert out == [i * i for i in range(20)]
+        out = []
+        gen = core.ordered_prefetch(src(), lambda i: i * i, depth=depth, workers=workers)
+        for k, (item, thunk, prefetched, pending) in enumerate(gen):
+            assert len(pulled) <= k + 1 + depth  # never more than depth + 1 ahead
+            assert item == k and prefetched == (depth > 0)
+            assert 1 <= pending <= depth + 1
+            out.append(thunk())
+        assert out == [i * i for i in range(20)]
 
 
 def test_ordered_prefetch_surfaces_error_at_the_failing_item():
@@ -114,14 +119,18 @@ def test_ordered_prefetch_surfaces_error_at_the_failing_item():
             raise RuntimeError("boom3")
         return i
 
-    seen = []
-    with pytest.raises(RuntimeError, match="boom3"):
-        for result in core.ordered_prefetch(range(6), fn, 2):
-            seen.append(result)
-    assert seen == [0, 1, 2]
+    for depth, workers in ((0, 1), (2, 1), (2, 3)):
+        seen = []
+        with pytest.raises(RuntimeError, match="boom3"):
+            for _, thunk, _, _ in core.ordered_prefetch(range(6), fn, depth=depth,
+                                                        workers=workers):
+                seen.append(thunk())
+        assert seen == [0, 1, 2]
 
 
 def test_ordered_prefetch_close_stops_worker_and_releases_buffers():
+    """``abort_wait=False`` (the fit packer's choice) returns from close
+    without joining a worker that is stuck; the default joins the pool."""
     started = []
     gate = threading.Event()
 
@@ -131,11 +140,31 @@ def test_ordered_prefetch_close_stops_worker_and_releases_buffers():
             gate.wait(5)
         return np.full(4096, i, dtype=np.uint8)
 
-    gen = core.ordered_prefetch(range(100), produce, 2)
-    assert next(gen)[0] == 0
+    gen = core.ordered_prefetch(range(100), produce, depth=2, abort_wait=False)
+    item, thunk, prefetched, _ = next(gen)
+    assert item == 0 and prefetched and thunk()[0] == 0
+    t0 = time.perf_counter()
     gen.close()  # returns without joining the worker stuck on item 1
+    assert time.perf_counter() - t0 < 2.5
     gate.set()
     assert len(started) <= 2
+
+    running, release = threading.Event(), threading.Event()
+    finished = []
+
+    def held(i):
+        if i == 1:
+            running.set()
+            release.wait(5)
+        finished.append(i)
+        return i
+
+    gen = core.ordered_prefetch(range(100), held, depth=2)
+    assert next(gen)[1]() == 0
+    assert running.wait(5)
+    release.set()
+    gen.close()  # joins: item 1, running when close began, has finished
+    assert 1 in finished
 
 
 # ----------------------------------------------------- guarded dispatch -----

@@ -16,6 +16,10 @@
 * A fourth, with ``jax`` unimportable, serves a saved model over HTTP on
   the CPU (``ModelRegistry``, ``ServingServer``, ``ServeClient``): labels
   and a segment result.
+* A fifth, with ``jax`` unimportable, streams through ``run_stream`` under
+  a fault plan with a dead-letter queue, a checkpoint and four workers, and
+  runs the auto-refit loop (accumulator, fit-state checkpoint, kill,
+  resume, hot swap through the registry) with a metrics sink armed.
 * An AST scan finds no import of either anywhere in the port, ``segment/``
   included, nor in ``chip_smoke.py``, and no ``importlib`` in the port's
   pipeline loader, which looks stage classes up in a fixed table.
@@ -241,6 +245,62 @@ def test_serving_over_http_runs_with_jax_unimportable():
     assert res.stdout.strip().endswith("isolated")
 
 
+def test_streaming_and_refit_run_with_jax_unimportable():
+    script = textwrap.dedent(
+        """
+        import sys, tempfile
+        for name in ("jax", "jaxlib", "spark_languagedetector_tpu"):
+            sys.modules[name] = None  # any import of it raises ImportError
+        from spark_languagedetector_tpu_torch import LanguageDetector, Table
+        from spark_languagedetector_tpu_torch.resilience import DeadLetterQueue, faults
+        from spark_languagedetector_tpu_torch.resilience.faults import FaultPlan
+        from spark_languagedetector_tpu_torch.resilience.policy import RetryPolicy
+        from spark_languagedetector_tpu_torch.serve import ModelRegistry
+        from spark_languagedetector_tpu_torch.stream import AutoRefit, memory_source, run_stream
+        from spark_languagedetector_tpu_torch.telemetry import REGISTRY
+        from spark_languagedetector_tpu_torch.telemetry.export import JsonlSink
+        out_dir = tempfile.mkdtemp()
+        REGISTRY.add_sink(JsonlSink(out_dir + "/events.jsonl"))
+        texts = ["the cat sat", "der hund lief", "a dog barks", "die katze schläft",
+                 "the end is near", "das ende ist nah"] * 4
+        labels = ["en", "de"] * 12
+        det = LanguageDetector(["en", "de"], [1, 2, 3], 50, device="cpu").set_fit_backend("device")
+        batches = [Table({"lang": labels[i:i + 6], "fulltext": texts[i:i + 6]})
+                   for i in range(0, 24, 6)]
+        registry = ModelRegistry(device="cpu")
+        state = out_dir + "/state"
+        AutoRefit(det, registry, state_path=state, final_refit=False).run(batches, max_batches=2)
+        progress = AutoRefit(det, registry, state_path=state, refit_every_batches=1).run(batches)
+        assert progress.resumed_from == 2 and progress.batches == 2, progress
+        assert registry.peek().describe()["metadata"]["refit_token"] == 4
+        model = registry.peek().model
+        scratch = det.fit(Table({"lang": labels, "fulltext": texts}))
+        assert (model.profile.ids == scratch.profile.ids).all()
+        assert (model.profile.weights == scratch.profile.weights).all()
+        rows = [{"fulltext": t} for t in texts]
+        sunk, dlq = [], DeadLetterQueue()
+        plan = "seed=7;stream/batch:error@2;score/dispatch:error@3;stream/batch:poison=1@2"
+        with faults.plan_scope(FaultPlan.parse(plan)):
+            q = run_stream(model, memory_source(rows, 4), lambda t: sunk.extend(t.column("lang")),
+                           retry_policy=RetryPolicy(max_attempts=3, base_delay_s=0.0), dlq=dlq,
+                           checkpoint_path=out_dir + "/ck.json", prefetch=6, workers=4)
+        assert q.batches == 6 and len(dlq) == 1 and len(sunk) == 23, (q, len(dlq), len(sunk))
+        REGISTRY.flush()
+        assert "stream/batch" in open(out_dir + "/events.jsonl").read()
+        bad = sorted(m for m, mod in sys.modules.items() if mod is not None
+                     and m.split(".")[0] in ("jax", "jaxlib", "spark_languagedetector_tpu"))
+        assert not bad, bad
+        print("isolated")
+        """
+    )
+    res = subprocess.run(
+        [sys.executable, "-c", script],
+        cwd=PORT_DIR.parent, capture_output=True, text=True, timeout=120,
+    )
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("isolated")
+
+
 def test_serving_entry_points_raise_without_a_card(tmp_path):
     """``ModelRegistry.load`` with no device, and the server's module entry
     point, need the card: with none visible they raise, never serve on the
@@ -307,6 +367,12 @@ def test_no_module_of_the_port_imports_jax():
     assert {"__init__.py", "batcher.py", "cache.py", "registry.py", "client.py",
             "server.py"} <= {p.name for p in (PORT_DIR / "serve").glob("*.py")}
     assert (PORT_DIR / "telemetry" / "aggregate.py").is_file()
+    assert {"__init__.py", "microbatch.py", "refit.py"} <= {
+        p.name for p in (PORT_DIR / "stream").glob("*.py")
+    }
+    for rel in ("models/refit.py", "persist/checkpoint.py", "resilience/dlq.py",
+                "telemetry/export.py"):
+        assert (PORT_DIR / rel).is_file(), rel
 
 
 def test_pipeline_loader_imports_nothing_by_name():
