@@ -159,6 +159,52 @@ Phases, one line or more each; any failure exits non-zero before the verdict:
    versions released their runners, and device memory after the last swap
    is within one staging ring of (before + the table). Printed: update,
    finalize, checkpoint and swap times, and the peak device memory.
+18. fleet    — ``ServeFleet.from_path`` of phase 4's model (saved) with three
+   replicas sharing one model and runner behind ``RouterServer`` (probes
+   every 40 ms on a pausable thread, breaker threshold 2, cooldown 0.3 s,
+   quarantine off; batchers ``max_wait_ms=4, max_rows=256,
+   max_queue_rows=1024``) and a ``FleetCollector``: six clients x 14 rounds
+   x 8 config-5 documents, /detect, /score and /detect?mode=segment by
+   (client + round) mod 3; at round 2 r0 is killed and that client sends
+   until a failover, at round 7 r0 is revived and re-admitted, at round 11
+   an /admin/swap to a profile-300 refit, then an /admin/rollback. Gates:
+   nothing dropped, every answer bit for bit the direct runner of the
+   version that served it, at least one failover, ejection and
+   re-admission, both versions served and no client seeing v1 after its
+   first v2, ``fused_detect`` and ``fused_segment`` launched, one runner
+   build per distinct model per swap and rollback, the live CUDA tensor
+   bytes after the swap exactly before - table A + table B and after the
+   rollback exactly before, the collector's merged ``serve/requests`` the
+   sum of the replicas' scrapes. Printed, claiming nothing: requests/s,
+   docs/s, ``fleet/request_s`` p50/p99, swap and rollback ms, the busy
+   share and each dispatcher thread's busy share; then the same clients
+   with no kill and no swap on uncached documents, in turns: through the
+   router, to replica r0 alone, through the router again (requests/s and
+   dispatcher busy shares; every answer bit for bit).
+19. storm    — the JAX bench's storm drill at config 5 on three replicas
+   behind the router's HTTP front, manual probes: a query of death
+   (``QuarantineTable(2)``) quarantined after exactly two deaths, its third
+   send a 422 before any dispatch and in the serve DLQ, a control batch
+   answered, a request under the deadline floor a 504; an outage under
+   ``RetryBudget(burst=1)`` (one failover granted, the next denied,
+   dispatches within offered x (1 + fraction) + burst); a seeded 0.4 s
+   straggler plan with hedging off then on (the hedged p99 lower); overload
+   with a drained budget (no hedge, each request answered or shed with
+   Retry-After). Every answer the direct runner's labels.
+20. zoo      — twelve tenants (and ``noisy``, ``TenantQuota(max_queue_rows=8)``)
+   at the config-5 spec, each device-fitted on its own seeded 60% of phase
+   4's training documents (f32 scores pairwise distinct), behind
+   ``ServingServer(ModelZoo(resident_bytes = 3 tenants' tables))``: six
+   clients x 16 rounds x 8 documents to seeded tenants, /score and /detect;
+   at round 5 five 48-document bulk requests to ``noisy``, at round 13
+   ``zoo.auto_refit("t00")`` over four batches of 440 documents. Gates:
+   every answer its own tenant's direct runner for the version that
+   answered and no /score answer another tenant's, no cross-tenant reject,
+   evictions and cold reloads, no busy tenant evicted, the burst shedding
+   ``noisy`` only, the refit moving t00 alone to a profile bit for bit a
+   from-scratch device fit, ``zoo/resident_bytes`` equal to the live CUDA
+   tensor bytes the zoo holds, and none left after ``zoo.close()``.
+   Printed: ``zoo/cold_load_s`` p50/p99, evictions, requests/s, busy share.
 
 Each phase prints its seconds. Phase 2 also builds the native packer
 (``native/*.cpp`` with g++) and fails if it cannot.
@@ -174,6 +220,7 @@ import contextlib
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 from typing import NamedTuple
@@ -2688,7 +2735,6 @@ def phase_serve(torch, dev, model5, texts5, case5: FitCase, model3, case3: FitCa
                 smi_line) -> None:
     """Online serving on the card (phase 15 of the module docstring)."""
     import gc
-    import tempfile
 
     from spark_languagedetector_tpu_torch import LanguageDetectorModel
     from spark_languagedetector_tpu_torch.serve import (
@@ -2881,7 +2927,6 @@ def spin_check(torch, dev, runner, run, ref) -> tuple[int, int]:
 def phase_stream(torch, dev, smi_line) -> int:
     """Bench config 4 through ``run_stream`` (phase 16 of the module
     docstring); returns the ``fused_detect`` launches of its gated runs."""
-    import tempfile
 
     from spark_languagedetector_tpu_torch import LanguageDetector, Table
     from spark_languagedetector_tpu_torch.ops import score_fused as SF
@@ -3031,7 +3076,6 @@ def phase_refit(torch, dev, case: FitCase, fit5_model, smi_line) -> int:
     docstring); returns the ``fused_detect`` launches of the served model's
     answers."""
     import gc
-    import tempfile
 
     from spark_languagedetector_tpu_torch import Table
     from spark_languagedetector_tpu_torch.models.refit import FitAccumulator
@@ -3150,6 +3194,716 @@ def phase_refit(torch, dev, case: FitCase, fit5_model, smi_line) -> int:
     return launches
 
 
+# --------------------------------------------------- fleet, storm, zoo ------
+FLEET_CLIENTS, FLEET_ROUNDS, FLEET_DOCS = 6, 14, 8  # config 5 through the router
+FLEET_KINDS = ("detect", "score", "segment")
+FLEET_KILL_ROUND, FLEET_REVIVE_ROUND, FLEET_SWAP_ROUND = 2, 7, 11
+STORM_STRAGGLE_S = 0.4  # the injected straggler: dwarfs a config-5 dispatch
+STORM_HEDGE_MIN_MS = 150.0  # the hedge delay floor, between the two
+ZOO_TENANTS, ZOO_CLIENTS, ZOO_ROUNDS, ZOO_DOCS = 12, 6, 16, 8
+ZOO_BURST_ROUND, ZOO_REFIT_ROUND = 5, 13
+ZOO_SUBSAMPLE = 0.6  # each tenant fits a distinct seeded 60% of phase 4's training docs
+
+
+def live_cuda_bytes(torch) -> int:
+    """Bytes of the CUDA storages that Python-held tensors reference, each
+    storage once."""
+    import gc
+
+    storages = {}
+    for o in gc.get_objects():
+        if isinstance(o, torch.Tensor) and o.is_cuda:
+            st = o.untyped_storage()
+            storages[st.data_ptr()] = st.nbytes()
+    return sum(storages.values())
+
+
+def quiesce(torch) -> int:
+    """Collect garbage, wait for the card, and return ``live_cuda_bytes``."""
+    import gc
+
+    gc.collect()
+    torch.cuda.synchronize()
+    return live_cuda_bytes(torch)
+
+
+class Prober:
+    """The router's probe rounds on a thread of this script, every
+    ``router.probe_interval_s``, with a pause: a kill is made while no probe
+    runs, so the next requests meet the dead replica before a probe marks
+    it unready (the failover a real crash mid-traffic gives)."""
+
+    def __init__(self, router):
+        import threading
+
+        self.router = router
+        self.running = threading.Event()
+        self.running.set()
+        self._stop = threading.Event()
+        self._idle = threading.Lock()
+        self._thread = threading.Thread(target=self._loop, name="smoke-prober", daemon=True)
+        self._thread.start()
+
+    def _loop(self):
+        while not self._stop.wait(self.router.probe_interval_s):
+            if self.running.is_set():
+                with self._idle:
+                    self.router.probe_once()
+
+    @contextlib.contextmanager
+    def paused(self):
+        self.running.clear()
+        with self._idle:  # a round in progress ends first
+            pass
+        try:
+            yield
+        finally:
+            self.running.set()
+
+    def stop(self):
+        self._stop.set()
+        self._thread.join(timeout=10)
+
+
+def wait_until(what: str, cond, timeout_s: float = 30.0) -> float:
+    """Poll ``cond`` every 2 ms; its seconds, or fail after ``timeout_s``."""
+    t0 = time.perf_counter()
+    while not cond():
+        if time.perf_counter() - t0 > timeout_s:
+            fail(f"{what}: not reached in {timeout_s:.0f}s")
+        time.sleep(0.002)
+    return time.perf_counter() - t0
+
+
+def timed_dispatchers(fleet, busy: dict) -> None:
+    """Time each replica batcher's dispatches (``busy[replica]`` gathers
+    seconds); a revived replica's new batcher is wrapped again."""
+    for rep in fleet.replicas:
+        b = rep.server.batcher if rep.server is not None else None
+        if b is None or getattr(b, "_smoke_timed", False):
+            continue
+        inner = b._dispatch
+
+        def timed(batch, inner=inner, name=rep.name):
+            t0 = time.perf_counter()
+            try:
+                return inner(batch)
+            finally:
+                busy[name] = busy.get(name, 0.0) + time.perf_counter() - t0
+
+        b._dispatch = timed
+        b._smoke_timed = True
+
+
+def fleet_load(ServeClient, address, texts, actions) -> tuple[list, float, dict]:
+    """FLEET_CLIENTS threads, FLEET_ROUNDS requests each of FLEET_DOCS
+    texts to the router at ``address``, the kind cycling /detect, /score,
+    /detect?mode=segment by (client + round) mod 3; ``actions[(client,
+    round)]`` runs first (it may send requests of its own and returns them).
+    Returns (client, kind, texts, answer, meta) in each client's order, the
+    wall seconds and each action's milliseconds; any error fails the
+    phase."""
+    import threading
+
+    records, errors, action_ms = [], [], {}
+    lock = threading.Lock()
+    barrier = threading.Barrier(FLEET_CLIENTS)
+
+    def send(client, c, kind, sub):
+        call = {"detect": client.detect, "score": client.score,
+                "segment": client.segment}[kind]
+        answer, meta = call(sub)
+        with lock:
+            records.append((c, kind, sub, answer, meta))
+        return meta
+
+    def work(c):
+        client = ServeClient(*address)
+        barrier.wait(timeout=60)
+        for r in range(FLEET_ROUNDS):
+            start = ((c * FLEET_ROUNDS + r) * FLEET_DOCS) % (len(texts) - FLEET_DOCS)
+            sub = texts[start:start + FLEET_DOCS]
+            try:
+                if (c, r) in actions:
+                    name, act = actions[c, r]
+                    t0 = time.perf_counter()
+                    act(lambda kind, s=sub: send(client, c, kind, s))
+                    action_ms[name] = (time.perf_counter() - t0) * 1e3
+                send(client, c, FLEET_KINDS[(c + r) % 3], sub)
+            except Exception as e:
+                errors.append(f"client {c} round {r}: {e!r}")
+                return
+
+    threads = [threading.Thread(target=work, args=(c,)) for c in range(FLEET_CLIENTS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    if errors:
+        fail(f"fleet: {len(errors)} clients stopped on an unanswered request: {errors[:3]}")
+    return records, wall, action_ms
+
+
+class RunnerBuilds:
+    """Counts runner builds per model object while active (wraps
+    ``LanguageDetectorModel._runner_locked``)."""
+
+    def __init__(self, Model):
+        self.Model, self.builds = Model, {}
+
+    def __enter__(self):
+        real = self.Model._runner_locked
+        builds = self.builds
+
+        def counting(model):
+            if model._runner is None:
+                builds[id(model)] = builds.get(id(model), 0) + 1
+            return real(model)
+
+        self._swap = swapped(self.Model, "_runner_locked", counting)
+        self._swap.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self._swap.__exit__(*exc)
+
+    def of(self, model) -> int:
+        return self.builds.get(id(model), 0)
+
+
+def phase_fleet(torch, dev, model5, texts5, case5: FitCase, tmp, smi_line) -> tuple[dict, tuple]:
+    """A three-replica fleet at config 5 behind the router (phase 18 of the
+    module docstring). Returns the launches and the two model directories."""
+    from spark_languagedetector_tpu_torch import LanguageDetectorModel
+    from spark_languagedetector_tpu_torch.serve import (
+        QuarantineTable, RouterServer, ServeClient, ServeFleet)
+    from spark_languagedetector_tpu_torch.telemetry import REGISTRY
+    from spark_languagedetector_tpu_torch.telemetry.aggregate import FleetCollector
+    from spark_languagedetector_tpu_torch.zoo.zoo import _table_bytes
+
+    dir_a, dir_b = f"{tmp}/c5", f"{tmp}/c5_p300"
+    t0 = time.perf_counter()
+    model5.save(dir_a)
+    m300 = case5.det.copy({"languageProfileSize": 300, "fitBackend": "device"}).fit(case5.table)
+    m300.save(dir_b)
+    del m300
+    ref_a = LanguageDetectorModel.load(dir_a, device=str(dev))
+    ref_b = LanguageDetectorModel.load(dir_b, device=str(dev))
+    say("fleet", f"phase 4's model and a profile-300 refit saved and reloaded as references in "
+        f"{time.perf_counter() - t0:.1f}s")
+    texts = texts5[:3000]
+    with RunnerBuilds(LanguageDetectorModel) as builds:
+        ref_a.runner.score([t.encode() for t in texts[:8]])
+        ref_b.runner.score([t.encode() for t in texts[:8]])
+        t0 = time.perf_counter()
+        fleet = ServeFleet.from_path(
+            dir_a, replicas=3, device=str(dev),
+            router_kw=dict(probe_interval_ms=40, breaker_threshold=2, breaker_cooldown_s=0.3,
+                           quarantine=QuarantineTable(0, name="fleet-smoke")),
+            max_wait_ms=4, max_rows=256, max_queue_rows=1024)
+        fleet.start(probe=False)
+        model_a = fleet.replicas[0].registry.peek().model
+        say("fleet", f"ServeFleet.from_path: 3 replicas sharing one model and one runner, up in "
+            f"{time.perf_counter() - t0:.2f}s")
+        prober = Prober(fleet.router)
+        collector = FleetCollector()
+        busy: dict[str, float] = {}
+        try:
+            with RouterServer(fleet.router, fleet=fleet, port=0, collector=collector) as front:
+                warm = ServeClient(*front.address)
+                for kind in FLEET_KINDS:
+                    getattr(warm, kind)(texts5[5000:5008])
+                table_a = _table_bytes(model_a.runner)
+                live0 = quiesce(torch)
+                REGISTRY.reset()
+                reset_launches()
+                timed_dispatchers(fleet, busy)
+
+                def kill(send):
+                    with prober.paused():
+                        fleet.replica("r0").kill()
+                        n = 0
+                        while REGISTRY.counters.get("fleet/failovers", 0) < 1:
+                            n += 1
+                            if n > 50:
+                                fail("fleet: 50 requests after the kill and no failover")
+                            send("detect")
+                    say("fleet", f"r0 killed at round {FLEET_KILL_ROUND}: {n} request(s) until "
+                        "the first failover")
+
+                def revive(send):
+                    wait_until("fleet: an ejection",
+                               lambda: REGISTRY.counters.get("fleet/ejections", 0) >= 1)
+                    fleet.replica("r0").revive()
+                    timed_dispatchers(fleet, busy)
+                    s = wait_until("fleet: three eligible replicas",
+                                   lambda: len(fleet.router.eligible()) == 3)
+                    say("fleet", f"r0 revived; three replicas eligible after {s:.2f}s")
+
+                def swap(send):
+                    ServeClient(*front.address).swap(dir_b)
+
+                actions = {(0, FLEET_KILL_ROUND): ("kill", kill),
+                           (0, FLEET_REVIVE_ROUND): ("revive", revive),
+                           (0, FLEET_SWAP_ROUND): ("swap", swap)}
+                records, wall, action_ms = fleet_load(ServeClient, front.address, texts, actions)
+                busy_main = dict(busy)
+                launches = read_launches()
+                counters = dict(REGISTRY.counters)
+                hist = REGISTRY.snapshot()["histograms"]["fleet/request_s"]
+                table_b = _table_bytes(fleet.replicas[0].registry.peek().runner)
+                live1 = quiesce(torch)
+                t0 = time.perf_counter()
+                if warm.rollback() != "v1":
+                    fail("fleet: the rollback did not land on v1")
+                rollback_ms = (time.perf_counter() - t0) * 1e3
+                live2 = quiesce(torch)
+                # Steady traffic, no kill and no swap, in turns: the fleet
+                # through the router, then replica r0 alone on its own port.
+                # Each leg sends documents no replica has cached.
+                steady = {}
+                for k, (leg, address) in enumerate((
+                        ("fleet", front.address), ("r0 alone", fleet.replica("r0").address),
+                        ("fleet again", front.address))):
+                    busy.clear()
+                    recs, w, _ = fleet_load(ServeClient, address,
+                                            texts5[3000 + 700 * k:3700 + 700 * k], {})
+                    serve_check(f"fleet steady ({leg})",
+                                [(k, sub, ans, meta) for _, k, sub, ans, meta in recs],
+                                {"v1": ref_a}, exact=True)
+                    steady[leg] = (len(recs) / w, dict(busy), w)
+                scrapes = {rep.name: ServeClient(*rep.address).telemetryz()
+                           for rep in fleet.replicas}
+                for name, snap in scrapes.items():
+                    collector.record(name, snap)
+                merged = collector.counter("serve/requests", include_local=False)
+                per = [s["counters"].get("serve/requests", 0) for s in scrapes.values()]
+                busy_note = serve_busy_share(torch, lambda: [
+                    ServeClient(*front.address).detect(texts[i:i + FLEET_DOCS])
+                    for i in range(0, 24 * FLEET_DOCS, FLEET_DOCS)])
+        finally:
+            prober.stop()
+            fleet.close()
+        builds_a, builds_b = builds.of(model_a), sum(
+            v for k, v in builds.builds.items() if k not in (id(model_a), id(ref_a), id(ref_b)))
+
+    n_docs = sum(len(sub) for _, _, sub, _, _ in records)
+    say("fleet", f"{len(records)} requests ({n_docs} docs) from {FLEET_CLIENTS} clients in "
+        f"{wall:.2f}s: {len(records) / wall:.1f} requests/s, {n_docs / wall:.0f} docs/s; "
+        f"fleet/request_s p50 {hist['p50'] * 1e3:.2f} ms, p99 {hist['p99'] * 1e3:.2f} ms; swap "
+        f"{action_ms['swap']:.0f} ms, rollback {rollback_ms:.0f} ms (client side); "
+        f"{busy_note}; dispatcher threads busy "
+        f"{ {k: f'{v / wall:.0%}' for k, v in sorted(busy_main.items())} } of the wall "
+        f"(r0's two batchers, before the kill and after the revival, summed); launches "
+        f"{launches} ({smi_line})")
+    for leg, (rps, per_thread, w) in steady.items():
+        say("fleet", f"steady, {FLEET_CLIENTS} clients x {FLEET_ROUNDS} rounds, {leg}: "
+            f"{rps:.1f} requests/s over {w:.2f}s; dispatcher threads busy "
+            f"{ {k: f'{v / w:.0%}' for k, v in sorted(per_thread.items())} } ({smi_line})")
+    say("fleet", "counters " + str({k: counters.get(k, 0) for k in (
+        "fleet/requests", "fleet/dispatches", "fleet/failovers", "fleet/ejections",
+        "fleet/readmissions", "fleet/swaps", "fleet/replica_kernel_errors")}))
+    if len(records) < FLEET_CLIENTS * FLEET_ROUNDS:
+        fail(f"fleet: {FLEET_CLIENTS * FLEET_ROUNDS - len(records)} responses dropped")
+    for name, want in (("fleet/failovers", 1), ("fleet/ejections", 1),
+                       ("fleet/readmissions", 1)):
+        if counters.get(name, 0) < want:
+            fail(f"fleet: {name} is {counters.get(name, 0)}, expected at least {want}")
+    served = sorted({m["version"] for *_, m in records})
+    if served != ["v1", "v2"]:
+        fail(f"fleet: versions served {served}, expected both v1 and v2")
+    for c in range(FLEET_CLIENTS):
+        stream = [m["version"] for cc, *_, m in records if cc == c]
+        if "v2" in stream and "v1" in stream[stream.index("v2"):]:
+            fail(f"fleet: client {c} saw v1 after its first v2 answer: {stream}")
+    if launches["fused_detect"] <= 0 or launches["fused_segment"] <= 0:
+        fail(f"fleet: answered without the fused kernels: {launches}")
+    note = serve_check("fleet", [(k, sub, ans, meta) for _, k, sub, ans, meta in records],
+                       {"v1": ref_a, "v2": ref_b}, exact=True)
+    say("fleet", f"every answer equals the direct runner of the version that served it, {note}; "
+        f"no client stream saw v1 after v2")
+    say("fleet", f"runner builds: model A {builds_a} (the fleet's start, the rollback), model B "
+        f"{builds_b} (the swap)")
+    if builds_a != 2 or builds_b != 1:
+        fail(f"fleet: runner builds A {builds_a}, B {builds_b}; expected one per distinct model "
+             "per swap and rollback (2 and 1)")
+    say("fleet", f"live CUDA tensor bytes: before the swap {live0}, after it {live1} (before "
+        f"- table A {table_a} + table B {table_b} = {live0 - table_a + table_b}), after the "
+        f"rollback {live2}")
+    if live1 != live0 - table_a + table_b or live2 != live0:
+        fail("fleet: the device tables held across the swap and rollback are not exactly "
+             "one runner's per distinct model")
+    say("fleet", f"collector: merged serve/requests {merged:.0f} = the sum of the three "
+        f"replicas' scrapes {per} (one process: each scrape carries the process registry)")
+    if merged != sum(per):
+        fail(f"fleet: the collector merged {merged} serve/requests, the scrapes sum {sum(per)}")
+    return launches, (dir_a, dir_b, ref_a)
+
+
+def phase_storm(torch, dev, dirs, texts5, smi_line) -> dict:
+    """The storm drill at config 5 behind the router's HTTP front (phase 19
+    of the module docstring). Returns the launches."""
+    from spark_languagedetector_tpu_torch.resilience import faults
+    from spark_languagedetector_tpu_torch.resilience.faults import FaultPlan
+    from spark_languagedetector_tpu_torch.resilience.policy import RetryBudget
+    from spark_languagedetector_tpu_torch.serve import (
+        QuarantineTable, RouterServer, ServeClient, ServeFleet, ServeHTTPError, signature_of)
+    from spark_languagedetector_tpu_torch.telemetry import REGISTRY
+
+    dir_a, _, ref = dirs
+    docs = texts5[3000:3400]
+    answered: list = []
+    c = lambda name: REGISTRY.counters.get(name, 0)  # noqa: E731
+    with tempfile.TemporaryDirectory(prefix="storm_smoke_") as tmp:
+        dlq_path = f"{tmp}/quarantine_dlq.jsonl"
+        fleet = ServeFleet.from_path(dir_a, replicas=3, device=str(dev), router_kw=dict(
+            probe_interval_ms=40.0, breaker_threshold=2, breaker_cooldown_s=0.3,
+            probe_timeout_s=2.0, drain_timeout_s=5.0, deadline_floor_ms=5.0,
+            retry_budget=RetryBudget(0.2, 10.0, name="storm"),
+            quarantine=QuarantineTable(2, dlq_path=dlq_path, name="storm"),
+            hedge_enable=False, hedge_quantile=0.05, hedge_min_ms=STORM_HEDGE_MIN_MS,
+        ), max_wait_ms=4, max_rows=64, max_queue_rows=512)
+        fleet.start(probe=False)
+        router = fleet.router
+        REGISTRY.reset()
+        reset_launches()
+        try:
+            with RouterServer(router, fleet=fleet, port=0) as front:
+                client = ServeClient(*front.address)
+
+                def ask(texts, **kw):
+                    try:
+                        got, meta = client.detect(texts, **kw)
+                    except ServeHTTPError as e:
+                        return ("http", e.status, bool(e.payload.get("quarantined")),
+                                e.retry_after_s > 0)
+                    answered.append((texts, got))
+                    return ("ok", meta["replica"])
+
+                def readmit():
+                    for h in router._handles:
+                        h.breaker._opened_at -= 10.0  # the cooldown, elapsed
+                    router.probe_once()
+                    return router.eligible()
+
+                # Leg 1: the query of death.
+                poison = [f"query of death {i} ☠" for i in range(4)]
+                fleet.replica("r0").kill()
+                first = [ask(poison), ask(poison)]
+                q = router.quarantine.describe()
+                before = c("fleet/dispatches")
+                third = ask(poison)
+                dispatched = c("fleet/dispatches") - before
+                control = ask(docs[:4])
+                subfloor = ask(docs[:4], deadline_ms=2.0)
+                fleet.replica("r0").revive()
+                back = readmit()
+                say("storm", f"leg 1: poison answered {first} (r0 dead), quarantined "
+                    f"{q['quarantined']} after {q['deaths_threshold']} deaths; third send "
+                    f"{third} with {dispatched} dispatches; control {control}; deadline 2 ms "
+                    f"under the 5 ms floor {subfloor} ({c('fleet/deadline_rejects')} deadline "
+                    f"rejects); DLQ {len(router.quarantine.dlq)} row(s)")
+                if first != [("ok", "r1"), ("ok", "r1")] or q["quarantined"] != [
+                        signature_of(poison)]:
+                    fail("storm: the poison batch was not quarantined after exactly 2 deaths")
+                if third != ("http", 422, True, False) or dispatched != 0:
+                    fail(f"storm: the quarantined send answered {third} after {dispatched} "
+                         "dispatches, expected a 422 before any")
+                if len(router.quarantine.dlq) != 1 or Path(dlq_path).read_text().count(
+                        "\n") != 1:
+                    fail("storm: the quarantined request is not in the serve DLQ")
+                if control[0] != "ok" or subfloor[:2] != ("http", 504):
+                    fail(f"storm: control {control}, sub-floor deadline {subfloor}")
+                if back != ["r0", "r1", "r2"]:
+                    fail(f"storm: r0 not re-admitted after leg 1: {back}")
+                # Leg 2: an outage under RetryBudget(burst=1).
+                router.retry_budget = RetryBudget(0.05, 1.0, name="storm-outage")
+                base = c("fleet/dispatches")
+                fleet.replica("r0").kill()
+                outcomes = [ask(docs[i * 3:i * 3 + 3]) for i in range(16)]
+                dispatches = c("fleet/dispatches") - base
+                budget = router.retry_budget.describe()
+                bound = len(outcomes) * (1 + 0.05) + 1.0
+                fleet.replica("r0").revive()
+                back = readmit()
+                say("storm", f"leg 2: 16 requests with r0 dead: {sum(o[0] == 'ok' for o in outcomes)}"
+                    f" answered, {outcomes.count(('http', 503, False, True))} shed by the budget; "
+                    f"{dispatches} dispatches (bound {bound:.2f}); budget {budget}")
+                if budget["spent"] != 1 or budget["denied"] < 1 or dispatches > bound:
+                    fail(f"storm: the retry budget granted {budget['spent']} and denied "
+                         f"{budget['denied']} failovers over {dispatches} dispatches")
+                if sum(o[0] == "ok" for o in outcomes) < len(outcomes) - 1 or back != [
+                        "r0", "r1", "r2"]:
+                    fail(f"storm: leg 2 outcomes {outcomes}, eligible {back}")
+                # Leg 3: the same straggler plan, hedging off then on.
+                router.retry_budget = RetryBudget(0.5, 10.0, name="storm-hedge")
+                plan = f"seed=11;fleet/dispatch:delay={STORM_STRAGGLE_S}@2,5"
+
+                def leg3():
+                    lats = []
+                    with faults.plan_scope(FaultPlan.parse(plan)):
+                        for i in range(8):
+                            t0 = time.perf_counter()
+                            out = ask(docs[100 + 4 * i:104 + 4 * i])
+                            lats.append(time.perf_counter() - t0)
+                            if out[0] != "ok":
+                                fail(f"storm: leg 3 request answered {out}")
+                    return np.asarray(lats)
+
+                lat_off = leg3()
+                router.hedge_enable = True
+                hedges0 = c("fleet/hedges")
+                lat_on = leg3()
+                hedges = c("fleet/hedges") - hedges0
+                # The hedges' losers still sleep in their injected delay;
+                # their admissions would count in leg 4's plan.
+                wait_until("storm: the hedges' losers", lambda: not any(
+                    router.outstanding(h.name) for h in router._handles))
+                p99_off, p99_on = np.percentile(lat_off, 99), np.percentile(lat_on, 99)
+                say("storm", f"leg 3: {STORM_STRAGGLE_S:.1f} s stragglers at dispatches 2 and 5 "
+                    f"of 8: p99 {p99_off * 1e3:.1f} ms unhedged, {p99_on * 1e3:.1f} ms hedged "
+                    f"(p50 {np.median(lat_off) * 1e3:.1f} / {np.median(lat_on) * 1e3:.1f} ms); "
+                    f"{hedges} hedges, {c('fleet/hedge_wins')} wins ({smi_line})")
+                if not (p99_on < p99_off and lat_on.max() < STORM_STRAGGLE_S and hedges >= 1):
+                    fail("storm: hedging did not cut the stragglers' tail")
+                # Leg 4: overload with a drained budget.
+                drained = RetryBudget(0.05, 1.0, name="storm-overload")
+                drained.try_spend(reason="storm_drain")
+                router.retry_budget = drained
+                hedges0 = c("fleet/hedges")
+                with faults.plan_scope(FaultPlan.parse(
+                        f"seed=13;fleet/dispatch:delay={STORM_STRAGGLE_S}@2;"
+                        "serve/admit:error@1,3,4")):
+                    outcomes = [ask(docs[200 + 3 * i:203 + 3 * i]) for i in range(6)]
+                hedges = c("fleet/hedges") - hedges0
+                say("storm", f"leg 4: stragglers and admission sheds with a drained budget: "
+                    f"{outcomes}; hedges {hedges}")
+                if hedges != 0 or not all(o[0] == "ok" or o[1:] == (503, False, True)
+                                          for o in outcomes):
+                    fail("storm: under overload a hedge fired or a request was neither "
+                         "answered nor shed with Retry-After")
+        finally:
+            fleet.close()
+    launches = read_launches()
+    names = ref.profile.languages
+    for texts, got in answered:
+        want = [names[i] for i in ref.runner.predict_ids([t.encode() for t in texts])]
+        if got != want:
+            fail("storm: an answered request differs from the direct runner")
+    say("storm", f"{len(answered)} answered requests, every one the direct runner's labels; "
+        f"launches {launches}")
+    if launches["fused_detect"] <= 0:
+        fail("storm: answered without fused_detect")
+    return launches
+
+
+def zoo_tenant_models(case5: FitCase, n: int):
+    """``n`` tenants fitted with fitBackend='device', each on its own seeded
+    ZOO_SUBSAMPLE of phase 4's training documents."""
+    from spark_languagedetector_tpu_torch import Table
+
+    det = case5.det.copy({"fitBackend": "device"})
+    labels = case5.table.column("lang").tolist()
+    texts = case5.table.column("fulltext").tolist()
+    models = []
+    for t in range(n):
+        keep = np.sort(np.random.default_rng(700 + t).choice(
+            len(texts), int(len(texts) * ZOO_SUBSAMPLE), replace=False))
+        models.append(det.fit(Table({"lang": [labels[i] for i in keep],
+                                     "fulltext": [texts[i] for i in keep]})))
+    return det, models
+
+
+def phase_zoo(torch, dev, case5: FitCase, texts5, smi_line) -> dict:
+    """The model zoo at the config-5 spec (phase 20 of the module
+    docstring). Returns the launches."""
+    import threading
+
+    from spark_languagedetector_tpu_torch import Table
+    from spark_languagedetector_tpu_torch.serve import ServeClient, ServeHTTPError, ServingServer
+    from spark_languagedetector_tpu_torch.telemetry import REGISTRY
+    from spark_languagedetector_tpu_torch.zoo import ModelZoo, TenantQuota
+    from spark_languagedetector_tpu_torch.zoo.zoo import _table_bytes
+
+    live_start = quiesce(torch)
+    t0 = time.perf_counter()
+    det, models = zoo_tenant_models(case5, ZOO_TENANTS + 1)
+    tenants = [f"t{i:02d}" for i in range(ZOO_TENANTS)]
+    by_name = dict(zip(tenants + ["noisy"], models))
+    pool = texts5[4000:4400]
+    pool_docs = [t.encode() for t in pool]
+    refs = {}
+    for name, m in by_name.items():
+        refs[name, "v1"] = (m.runner.score(pool_docs), m.runner.predict_ids(pool_docs))
+        table = _table_bytes(m.runner)
+        m.release_runner()
+    fit_s = time.perf_counter() - t0
+    for a in range(len(tenants)):
+        for b in range(a):
+            if np.array_equal(refs[tenants[a], "v1"][0], refs[tenants[b], "v1"][0]):
+                fail(f"zoo: tenants {tenants[a]} and {tenants[b]} score alike")
+    say("zoo", f"{len(models)} tenants fitted on the card (fitBackend='device', a seeded "
+        f"{ZOO_SUBSAMPLE:.0%} of phase 4's {len(case5.table)} docs each) and scored on "
+        f"{len(pool)} docs in {fit_s:.1f}s: f32 scores pairwise distinct; one tenant's device "
+        f"tables {table / 1e6:.1f} MB")
+    live0 = quiesce(torch)
+    zoo = ModelZoo(device=str(dev), resident_bytes=3 * table, max_wait_ms=4, max_rows=256,
+                   max_queue_rows=1024)
+    for name in tenants:
+        zoo.add_tenant(name, by_name[name])
+    zoo.add_tenant("noisy", by_name["noisy"], quota=TenantQuota(max_queue_rows=8))
+    busy_evictions = []
+    real_evict = zoo._evict_locked
+
+    def watched_evict(name):
+        rt = zoo._entries[name].runtime
+        stats = rt.batcher.stats()
+        if rt.registry.busy() or stats["queued_rows"] or stats["inflight_rows"]:
+            busy_evictions.append(name)
+        return real_evict(name)
+
+    zoo._evict_locked = watched_evict
+    REGISTRY.reset()
+    reset_launches()
+    records, errors, burst, refit = [], [], [], {}
+    lock = threading.Lock()
+    barrier = threading.Barrier(ZOO_CLIENTS)
+    refit_batches = [Table({"lang": case5.table.column("lang").tolist()[i:i + REFIT_BATCH],
+                            "fulltext": case5.table.column("fulltext").tolist()[i:i + REFIT_BATCH]})
+                     for i in range(0, 4 * REFIT_BATCH, REFIT_BATCH)]
+    with ServingServer(zoo, port=0) as server:
+        def burst_noisy():
+            def one(k):
+                try:
+                    ServeClient(*server.address).detect(pool[k * 48:(k + 1) * 48],
+                                                        tenant="noisy", priority="bulk")
+                    out = "ok"
+                except ServeHTTPError as e:
+                    out = "shed" if e.status == 503 and e.shed and e.retry_after_s > 0 else repr(e)
+                with lock:
+                    burst.append(out)
+
+            threads = [threading.Thread(target=one, args=(k,)) for k in range(5)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+
+        def do_refit():
+            t0 = time.perf_counter()
+            ar = zoo.auto_refit("t00", det, refit_every_batches=4, final_refit=False)
+            progress = ar.run(refit_batches)
+            refit.update(version=zoo.version("t00"), model=ar.last_model, refits=progress.refits,
+                         s=time.perf_counter() - t0)
+            del ar
+
+        def work(ci):
+            crng = np.random.default_rng(900 + ci)
+            client = ServeClient(*server.address)
+            barrier.wait(timeout=60)
+            for r in range(ZOO_ROUNDS):
+                if ci == 0 and r == ZOO_BURST_ROUND:
+                    burst_noisy()
+                if ci == 0 and r == ZOO_REFIT_ROUND:
+                    do_refit()
+                tenant = tenants[int(crng.integers(len(tenants)))]
+                lo = int(crng.integers(0, len(pool) - ZOO_DOCS))
+                kind = ("score", "detect")[(ci + r) % 2]
+                try:
+                    out, meta = getattr(client, kind)(pool[lo:lo + ZOO_DOCS], tenant=tenant)
+                except Exception as e:
+                    errors.append(f"client {ci} round {r} [{tenant}]: {e!r}")
+                    return
+                with lock:
+                    records.append((tenant, kind, lo, out, meta))
+
+        threads = [threading.Thread(target=work, args=(ci,)) for ci in range(ZOO_CLIENTS)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        counters = dict(REGISTRY.counters)
+        snap = REGISTRY.snapshot()
+        cold = snap["histograms"].get("zoo/cold_load_s", {})
+        gauge = snap["gauges"]["langdetect_zoo_resident_bytes"][""]
+        resident = zoo.resident()
+        live1 = quiesce(torch)
+        health = zoo.healthz()
+        versions = {t: zoo.version(t) for t in tenants + ["noisy"]}
+        warm = list(resident)
+        busy_note = serve_busy_share(torch, lambda: [
+            ServeClient(*server.address).score(pool[i:i + ZOO_DOCS],
+                                               tenant=warm[(i // ZOO_DOCS) % len(warm)])
+            for i in range(0, 24 * ZOO_DOCS, ZOO_DOCS)])
+    zoo.close()
+    live2 = quiesce(torch)
+
+    if errors:
+        fail(f"zoo: {len(errors)} requests not answered: {errors[:3]}")
+    cold_reloads = sum(max(0, b["loads"] - 1) for b in health["tenants"].values())
+    say("zoo", f"{len(records)} requests from {ZOO_CLIENTS} clients over {len(tenants)} tenants "
+        f"in {wall:.2f}s: {len(records) / wall:.1f} requests/s; zoo/cold_load_s p50 "
+        f"{cold.get('p50', 0) * 1e3:.1f} ms, p99 {cold.get('p99', 0) * 1e3:.1f} ms over "
+        f"{cold.get('count', 0)} loads; {counters.get('zoo/evictions', 0)} evictions, "
+        f"{cold_reloads} cold reloads; {busy_note}; launches {launches} ({smi_line})")
+    if counters.get("zoo/cross_tenant_rejects", 0):
+        fail("zoo: a cross-tenant runtime was refused")
+    if counters.get("zoo/evictions", 0) < 1 or cold_reloads < 1:
+        fail("zoo: no eviction or no cold reload under a three-tenant byte budget")
+    if busy_evictions:
+        fail(f"zoo: leased or busy tenants evicted: {busy_evictions}")
+    victims = {t: counters.get(f"zoo/shed/{t}", 0) for t in tenants}
+    say("zoo", f"noisy burst: {burst}; zoo/shed/noisy {counters.get('zoo/shed/noisy', 0)}, every "
+        f"other tenant's {sum(victims.values())}")
+    if (burst.count("shed") < 1 or any(o not in ("ok", "shed") for o in burst)
+            or any(victims.values())):
+        fail(f"zoo: the noisy burst shed {burst}, victims {victims}")
+    moved = {t: v for t, v in versions.items() if v != "v1"}
+    if moved != {"t00": "v2"} or refit.get("refits") != 1:
+        fail(f"zoo: the refit moved {moved} ({refit.get('refits')} refits), expected t00 only")
+    scratch = det.fit(Table({"lang": [x for b in refit_batches for x in b.column("lang").tolist()],
+                             "fulltext": [x for b in refit_batches
+                                          for x in b.column("fulltext").tolist()]}))
+    sp, fp = refit["model"].profile, scratch.profile
+    if not (np.array_equal(sp.ids, fp.ids) and np.array_equal(sp.weights, fp.weights)):
+        fail("zoo: t00's refit profile differs from a from-scratch device fit of its 1,760 docs")
+    say("zoo", f"refit of t00 over 4 x {REFIT_BATCH} docs in {refit['s']:.1f}s: served "
+        f"{refit['version']}, profile bit for bit a from-scratch device fit; no other tenant "
+        "moved")
+    by_name["t00@v2"] = refit["model"]
+    refs["t00", "v2"] = (refit["model"].runner.score(pool_docs),
+                         refit["model"].runner.predict_ids(pool_docs))
+    refit["model"].release_runner()
+    names = models[0].profile.languages
+    for tenant, kind, lo, out, meta in records:
+        if meta.get("tenant") != tenant:
+            fail(f"zoo: a request to {tenant} was answered by {meta.get('tenant')}")
+        want_s, want_l = refs[tenant, meta["version"]]
+        if kind == "score":
+            if not np.array_equal(out, want_s[lo:lo + ZOO_DOCS]):
+                fail(f"zoo: {tenant} {meta['version']} scores differ from its direct runner")
+            for (other, v), (s, _) in refs.items():
+                if other != tenant and np.array_equal(out, s[lo:lo + ZOO_DOCS]):
+                    fail(f"zoo: an answer of {tenant} equals {other} {v}'s")
+        elif out != [names[i] for i in want_l[lo:lo + ZOO_DOCS]]:
+            fail(f"zoo: {tenant} {meta['version']} labels differ from its direct runner")
+    say("zoo", f"every answer is its own tenant's direct runner for the version that answered, "
+        f"bit for bit, and no /score answer equals another tenant's")
+    say("zoo", f"resident at the end {list(resident)}: zoo/resident_bytes {gauge:.0f}, live CUDA "
+        f"tensor bytes above the zoo's start {live1 - live0} (before the zoo {live0}, at the "
+        f"start of the phase {live_start}); after close {live2}")
+    if gauge != sum(resident.values()) or live1 - live0 != gauge:
+        fail("zoo: zoo/resident_bytes is not the resident tenants' live table bytes")
+    if abs(live2 - live0) > 0:
+        fail(f"zoo: {live2 - live0} B of CUDA tensors outlived zoo.close()")
+    return launches
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--quick", action="store_true",
@@ -3232,6 +3986,16 @@ def main() -> None:
         stream_launches = phase_stream(torch, dev, smi_line)
     with phase_clock("refit"):
         refit_launches = phase_refit(torch, dev, fit5_case, fit5_model, smi_line)
+    with tempfile.TemporaryDirectory(prefix="fleet_smoke_") as tmp:
+        with phase_clock("fleet"):
+            fleet_launches, fleet_dirs = phase_fleet(torch, dev, model, main_docs, fit5_case,
+                                                     tmp, smi_line)
+        with phase_clock("storm"):
+            storm_launches = phase_storm(torch, dev, fleet_dirs, main_docs, smi_line)
+        del fleet_dirs
+    with phase_clock("zoo"):
+        zoo_launches = phase_zoo(torch, dev, fit5_case, main_docs, smi_line)
+    segment_entry["launches"] += fleet_launches["fused_segment"]
     bad = [k for k in ("jax", "jaxlib", "spark_languagedetector_tpu") if k in sys.modules]
     if bad:
         fail(f"JAX modules were imported: {bad}")
@@ -3242,7 +4006,9 @@ def main() -> None:
         "route": "cuda",
         "source": "spark_languagedetector_tpu_torch/csrc/fused_detect.cu",
         "replaces": "spark_languagedetector_tpu/ops/score_fused.py:308",
-        "launches": launches + stream_launches + refit_launches,
+        "launches": (launches + stream_launches + refit_launches
+                     + fleet_launches["fused_detect"] + storm_launches["fused_detect"]
+                     + zoo_launches["fused_detect"]),
         "max_abs_err": max(kernel_err, c5_err),
         **times,
     }, segment_entry] + hist_entries}))

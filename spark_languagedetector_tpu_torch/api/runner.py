@@ -488,6 +488,20 @@ class BatchRunner:
         """Device bytes of the active strategy's tables and membership."""
         return int(self._table_bytes)
 
+    def device_tables(self) -> list[torch.Tensor]:
+        """Every table tensor this runner holds on its device: the weight
+        table in its stored dtype and its scales, the LUT or cuckoo
+        entries, the bigram and row-histogram operands, and the gather
+        operands once built. Views may share a storage (the bigram weight
+        views of a ``pallas`` table do)."""
+        out = [self.table, self.scales, self.table_lut, self._cuckoo_entries]
+        if self.pallas_state is not None:
+            out += [self.pallas_state.w1, self.pallas_state.w2]
+        if self.hist_state is not None:
+            out += [self.hist_state.weights_pad, self.hist_state.bucket, self.hist_state.lut]
+        out += list(self._gather_ops or ())
+        return [t for t in out if t is not None]
+
     def plan(self, sizes: Sequence[int]) -> list[tuple[np.ndarray, int]]:
         """The micro-batch plan for items of these byte sizes."""
         return plan_micro_batches(

@@ -3,9 +3,9 @@
 Port of ``spark_languagedetector_tpu.exec.config``. The table holds the
 knobs a module of the port reads, under the JAX package's names, env
 spellings, types and defaults, so one environment configures both packages
-alike. The JAX package's other knobs (fleet, hedging, quarantine, zoo,
-retry budget, scale, cold-start, trace and peak-rate, multi-process) are
-listed in ``ROADMAP.md`` against the work that will bring their readers.
+alike. The JAX package's other knobs (scale, cold-start, trace and
+peak-rate, multi-process) are listed in ``ROADMAP.md`` against the work that
+will bring their readers.
 
 Every knob resolves here, once, with type validation and a single
 precedence rule:
@@ -143,6 +143,62 @@ KNOBS: dict[str, Knob] = _knobs(
          tunable=True, positive=True),
     Knob("serve_slo_ms", "LANGDETECT_SERVE_SLO_MS", "float", 0.0,
          "estimated-wait shed threshold (0: off)"),
+    # --- model zoo (multi-tenant serving: zoo/) --------------------------
+    Knob("zoo_resident_bytes", "LANGDETECT_ZOO_RESIDENT_BYTES", "int", None,
+         "resident weight-table byte budget for the model zoo (unset: "
+         "unlimited)", positive=True),
+    Knob("zoo_resident_models", "LANGDETECT_ZOO_RESIDENT_MODELS", "int", None,
+         "resident model bound for the model zoo (unset: unlimited)",
+         positive=True),
+    # --- fleet (replicated serving: router + replicas) --------------------
+    Knob("fleet_replicas", "LANGDETECT_FLEET_REPLICAS", "int", 3,
+         "serve replicas behind the fleet router", positive=True),
+    Knob("fleet_probe_interval_ms", "LANGDETECT_FLEET_PROBE_INTERVAL_MS",
+         "float", 100.0, "router health-probe period per round",
+         positive=True),
+    Knob("fleet_probe_timeout_s", "LANGDETECT_FLEET_PROBE_TIMEOUT_S",
+         "float", 2.0, "liveness/readiness probe HTTP timeout",
+         positive=True),
+    Knob("fleet_dispatch_attempts", "LANGDETECT_FLEET_DISPATCH_ATTEMPTS",
+         "int", 3, "distinct replicas tried per request before the fleet "
+         "sheds", positive=True),
+    Knob("fleet_breaker_threshold", "LANGDETECT_FLEET_BREAKER_THRESHOLD",
+         "int", 3, "consecutive probe/dispatch failures that eject a "
+         "replica", positive=True),
+    Knob("fleet_breaker_cooldown_s", "LANGDETECT_FLEET_BREAKER_COOLDOWN_S",
+         "float", 1.0, "ejection -> half-open re-probe cooldown",
+         positive=True),
+    Knob("fleet_drain_timeout_s", "LANGDETECT_FLEET_DRAIN_TIMEOUT_S",
+         "float", 10.0, "per-replica drain bound during the two-phase "
+         "fleet swap", positive=True),
+    # --- storm defense (retry budget, hedging, quarantine) ---------------
+    Knob("fleet_deadline_floor_ms", "LANGDETECT_FLEET_DEADLINE_FLOOR_MS",
+         "float", 5.0, "remaining-deadline floor below which the router "
+         "504s instead of burning another replica", positive=True),
+    Knob("retry_budget_fraction", "LANGDETECT_RETRY_BUDGET_FRACTION",
+         "float", 0.2, "retry-budget tokens deposited per success "
+         "(0: budget off, retries ungated)"),
+    Knob("retry_budget_burst", "LANGDETECT_RETRY_BUDGET_BURST", "float",
+         10.0, "retry-budget token cap and starting balance",
+         positive=True),
+    Knob("hedge_enable", "LANGDETECT_HEDGE_ENABLE", "bool", False,
+         "hedged fleet dispatch: second replica tried after the observed "
+         "latency-quantile delay"),
+    Knob("hedge_quantile", "LANGDETECT_HEDGE_QUANTILE", "float", 0.95,
+         "observed dispatch-latency quantile that arms the hedge timer",
+         positive=True),
+    Knob("hedge_min_ms", "LANGDETECT_HEDGE_MIN_MS", "float", 10.0,
+         "hedge-delay floor (also the delay before latency history "
+         "exists)", positive=True),
+    Knob("quarantine_deaths", "LANGDETECT_QUARANTINE_DEATHS", "int", 2,
+         "correlated replica deaths that quarantine a request signature",
+         positive=True),
+    Knob("quarantine_max_entries", "LANGDETECT_QUARANTINE_MAX_ENTRIES",
+         "int", 4096, "suspect/quarantine signature-table bound (oldest "
+         "evicted first)", positive=True),
+    Knob("quarantine_dlq_path", "LANGDETECT_QUARANTINE_DLQ_PATH", "str",
+         None, "serve-level dead-letter JSONL for quarantined "
+         "query-of-death signatures"),
     # --- telemetry --------------------------------------------------------
     Knob("metrics_sink", "LANGDETECT_METRICS_SINK", "str", None,
          "metrics sink spec (jsonl:<path> / prometheus:<path>)"),

@@ -447,6 +447,7 @@ class LanguageDetectorModel(HasInputCol, HasOutputCol, _ResultModeParams, _Devic
         # dispatcher, a swap's prewarm, HTTP handlers): one build, one
         # runner, under this lock.
         self._runner_lock = threading.Lock()
+        self._runner_holds = 0
         self.set_default(
             inputCol="fulltext",
             outputCol="lang",
@@ -541,10 +542,12 @@ class LanguageDetectorModel(HasInputCol, HasOutputCol, _ResultModeParams, _Devic
         state = self.__dict__.copy()
         state.pop("_runner_lock", None)
         state["_runner"] = None
+        state["_runner_holds"] = 0
         return state
 
     def __setstate__(self, state):
         self.__dict__.update(state)
+        self.__dict__.setdefault("_runner_holds", 0)
         self._runner_lock = threading.Lock()
 
     @property
@@ -552,32 +555,51 @@ class LanguageDetectorModel(HasInputCol, HasOutputCol, _ResultModeParams, _Devic
         """The model's runner, built once on first use (uploads the fused
         table), however many threads ask at the same time."""
         with self._runner_lock:
-            if self._runner is None:
-                # Host tensors of the profile's device view (dense table,
-                # LUT or cuckoo table); the runner uploads what its
-                # strategy reads.
-                weights, lut, cuckoo = self.profile.device_membership(device="cpu")
-                self._runner = BatchRunner(
-                    weights=weights,
-                    lut=lut,
-                    cuckoo=cuckoo,
-                    spec=self.profile.spec,
-                    device=self.get("device"),
-                    batch_size=self.get("batchSize"),
-                    quantization=self.get("quantization"),
-                    max_score_bytes=self.get("maxScoreBytes"),
-                    # maxScoreBytes truncation must know how the docs were
-                    # encoded: low_byte docs take a hard slice.
-                    score_encoding=self.get("predictEncoding"),
-                )
-            return self._runner
+            return self._runner_locked()
+
+    def _runner_locked(self) -> BatchRunner:
+        if self._runner is None:
+            # Host tensors of the profile's device view (dense table, LUT or
+            # cuckoo table); the runner uploads what its strategy reads.
+            weights, lut, cuckoo = self.profile.device_membership(device="cpu")
+            self._runner = BatchRunner(
+                weights=weights,
+                lut=lut,
+                cuckoo=cuckoo,
+                spec=self.profile.spec,
+                device=self.get("device"),
+                batch_size=self.get("batchSize"),
+                quantization=self.get("quantization"),
+                max_score_bytes=self.get("maxScoreBytes"),
+                # maxScoreBytes truncation must know how the docs were
+                # encoded: low_byte docs take a hard slice.
+                score_encoding=self.get("predictEncoding"),
+            )
+        return self._runner
+
+    def hold_runner(self, runner: BatchRunner | None = None) -> BatchRunner:
+        """Take one hold on the cached runner (``runner``, or the model's
+        own, built if needed): it stays cached until every hold is given
+        back through :meth:`release_runner`. Registries that share one model
+        (a fleet's replicas, tenants of a zoo) hold it once per serving
+        version, so one replica's retirement does not drop a runner the
+        others still serve from, and a re-activation finds it."""
+        with self._runner_lock:
+            if runner is None:
+                runner = self._runner_locked()
+            elif self._runner is None:
+                self._runner = runner
+            self._runner_holds += 1
+            return runner
 
     def release_runner(self) -> None:
-        """Drop the cached runner, so its device tables and pinned staging
-        can be freed once no caller holds it; the next ``runner`` read
-        builds a new one."""
+        """Give back one hold; with none left, drop the cached runner, so its
+        device tables and pinned staging can be freed once no caller holds
+        it. The next ``runner`` read builds a new one."""
         with self._runner_lock:
-            self._runner = None
+            self._runner_holds = max(0, self._runner_holds - 1)
+            if self._runner_holds == 0:
+                self._runner = None
 
     def transform(self, dataset: Table) -> Table:
         out_schema = self.transform_schema(dataset.schema)

@@ -6,7 +6,8 @@ Port of ``spark_languagedetector_tpu.resilience``:
   * :mod:`.policy` — :class:`RetryPolicy` (bounded attempts, deterministic
     seeded backoff, per-attempt deadlines, a classifier that refuses
     programming errors, kernel build and launch failures and CUDA errors),
-    and :class:`CircuitBreaker`;
+    :class:`CircuitBreaker`, and :class:`RetryBudget` (the token bucket a
+    fleet's failovers, hedges and client re-sends draw on);
   * :mod:`.faults` — :class:`FaultPlan` (env ``LANGDETECT_FAULT_PLAN`` or
     :func:`faults.plan_scope`) injects failures and latency at named sites
     with a seeded schedule, so every recovery path runs on the CPU;
@@ -26,6 +27,7 @@ from .policy import (
     BreakerOpen,
     CircuitBreaker,
     DeadlineExceeded,
+    RetryBudget,
     RetryPolicy,
     is_retryable,
 )
@@ -39,6 +41,7 @@ __all__ = [
     "InjectedFault",
     "PoisonRowError",
     "PoisonText",
+    "RetryBudget",
     "RetryPolicy",
     "is_retryable",
 ]

@@ -282,6 +282,104 @@ class RetryPolicy:
             return result
 
 
+# --- retry budget ------------------------------------------------------------
+RETRY_BUDGET_FRACTION_ENV = "LANGDETECT_RETRY_BUDGET_FRACTION"
+RETRY_BUDGET_BURST_ENV = "LANGDETECT_RETRY_BUDGET_BURST"
+
+
+class RetryBudget:
+    """Token bucket that bounds retries to a fraction of successes.
+
+    Each success deposits ``fraction`` tokens, up to ``burst`` (also the
+    starting balance, so a quiet service absorbs a small incident at once).
+    Every extra attempt (a router failover, a client re-send of a 503, a
+    hedge) must withdraw one whole token first. In an outage successes dry
+    up and the bucket drains, so retries stay under ``burst + fraction x
+    successes`` instead of multiplying the offered load; a refused
+    withdrawal counts ``fleet/retry_budget_exhausted`` and the caller sheds.
+
+    ``fraction <= 0`` disables the budget (:meth:`try_spend` always grants).
+    Thread-safe; the balance is the ``langdetect_retry_budget_tokens``
+    gauge.
+    """
+
+    def __init__(
+        self,
+        fraction: float | None = None,
+        burst: float | None = None,
+        *,
+        name: str = "fleet",
+    ):
+        from ..exec import config as exec_config
+
+        self.fraction = float(exec_config.resolve("retry_budget_fraction", fraction))
+        self.burst = max(1.0, float(exec_config.resolve("retry_budget_burst", burst)))
+        self.name = name
+        self._lock = threading.Lock()
+        self._tokens = self.burst
+        self._successes = 0
+        self._spent = 0
+        self._denied = 0
+        self._gauge()
+
+    @property
+    def enabled(self) -> bool:
+        return self.fraction > 0.0
+
+    @property
+    def tokens(self) -> float:
+        with self._lock:
+            return self._tokens
+
+    def _gauge(self) -> None:
+        REGISTRY.set_gauge(
+            "langdetect_retry_budget_tokens", round(self._tokens, 6), budget=self.name
+        )
+
+    def record_success(self) -> None:
+        """Deposit for one successful first attempt."""
+        if not self.enabled:
+            return
+        with self._lock:
+            self._successes += 1
+            self._tokens = min(self.burst, self._tokens + self.fraction)
+            self._gauge()
+
+    def try_spend(self, *, reason: str = "retry") -> bool:
+        """Withdraw one token for an extra attempt; False: shed it."""
+        if not self.enabled:
+            return True
+        with self._lock:
+            granted = self._tokens >= 1.0
+            if granted:
+                self._tokens -= 1.0
+                self._spent += 1
+            else:
+                self._denied += 1
+            self._gauge()
+        if not granted:
+            REGISTRY.incr("fleet/retry_budget_exhausted")
+            log_event(
+                _log, "resilience.retry_budget.exhausted", budget=self.name,
+                reason=reason, fraction=self.fraction,
+            )
+        return granted
+
+    def describe(self) -> dict:
+        """The budget's state, for ``/varz`` and the storm checks."""
+        with self._lock:
+            return {
+                "name": self.name,
+                "enabled": self.enabled,
+                "fraction": self.fraction,
+                "burst": self.burst,
+                "tokens": round(self._tokens, 6),
+                "successes": self._successes,
+                "spent": self._spent,
+                "denied": self._denied,
+            }
+
+
 # --- circuit breaker ---------------------------------------------------------
 BREAKER_THRESHOLD_ENV = "LANGDETECT_BREAKER_THRESHOLD"
 BREAKER_COOLDOWN_ENV = "LANGDETECT_BREAKER_COOLDOWN_S"

@@ -12,9 +12,13 @@ kernels) as the offline transform:
     zero-downtime hot swap and rollback;
   * :class:`~.server.ServingServer` / :class:`~.client.ServeClient`:
     stdlib JSON-over-HTTP front end and client, wire-compatible with the
-    JAX package's.
-
-The router, fleet, quarantine and model zoo are not ported yet.
+    JAX package's (a server may front a :class:`~..zoo.ModelZoo`);
+  * :class:`~.router.FleetRouter` / :class:`~.router.RouterServer`: the
+    health-checked router over replicas (failover, ejection, hedging,
+    retry budget), and :class:`~.quarantine.QuarantineTable`, its
+    query-of-death memory;
+  * :class:`~.fleet.ServeFleet` / :class:`~.fleet.ServeReplica`: N
+    in-process replicas behind a router, with the two-phase fleet swap.
 """
 
 from __future__ import annotations
@@ -32,7 +36,10 @@ from .batcher import (
 )
 from .cache import ScoreCache
 from .client import ServeClient, ServeHTTPError
+from .fleet import ServeFleet, ServeReplica
+from .quarantine import QuarantineTable, QueryQuarantined, signature_of
 from .registry import ModelRegistry, ModelVersion, PreparedVersion
+from .router import FleetRouter, FleetSaturated, FleetSwapError, NoReadyReplica, RouterServer
 from .server import ServingServer
 
 __all__ = [
@@ -40,16 +47,26 @@ __all__ = [
     "INTERACTIVE",
     "LANES",
     "ContinuousBatcher",
+    "FleetRouter",
+    "FleetSaturated",
+    "FleetSwapError",
     "ModelRegistry",
     "ModelVersion",
+    "NoReadyReplica",
     "PreparedVersion",
+    "QuarantineTable",
+    "QueryQuarantined",
+    "RouterServer",
     "ScoreCache",
     "ServeClient",
     "ServeClosed",
     "ServeDeadlineExceeded",
     "ServeError",
+    "ServeFleet",
     "ServeHTTPError",
     "ServeOverloaded",
+    "ServeReplica",
     "ServeResult",
     "ServingServer",
+    "signature_of",
 ]

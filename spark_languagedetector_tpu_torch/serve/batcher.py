@@ -192,10 +192,17 @@ class ContinuousBatcher:
         cache: ScoreCache | None = None,
         cache_enable: bool | None = None,
         clock=time.monotonic,
+        name: str = "serve",
+        tenant: str | None = None,
     ):
         if not hasattr(source, "lease"):
             source = _StaticSource(source)
         self._source = source
+        self.name = name
+        # A model zoo's batcher serves one tenant: its cache keys carry the
+        # tenant (a cache shared across tenants never cross-answers) and its
+        # sheds also count ``zoo/shed/<tenant>``.
+        self.tenant = tenant
         # The version-keyed score cache, consulted per document under the
         # dispatch's lease: an explicit instance wins (shared across
         # batchers), else one is built when ``cache_enable`` resolves true.
@@ -213,7 +220,7 @@ class ContinuousBatcher:
             on_change=self._on_queue_change,
             clock=clock,
         )
-        self._thread = threading.Thread(target=self._run, name="serve-batcher", daemon=True)
+        self._thread = threading.Thread(target=self._run, name=f"{name}-batcher", daemon=True)
         self._thread.start()
         log_event(
             _log, "serve.batcher.start", max_wait_ms=self.max_wait_s * 1e3,
@@ -307,7 +314,7 @@ class ContinuousBatcher:
         tid = trace_id or current_trace_id() or new_trace_id()
         if not docs:
             if self._queue.closed:
-                raise ServeClosed("batcher is closed")
+                raise ServeClosed(f"batcher {self.name!r} is closed")
             # Zero-row requests never wake the row-counting dispatcher:
             # answer them here with the runner's own empty result.
             entry = self._source.peek()
@@ -342,7 +349,7 @@ class ContinuousBatcher:
         # degraded-bulk probe under the queue lock (reject-newest).
         reason, wait_s = self._queue.admit(req, len(docs), priority)
         if reason == "closed":
-            raise ServeClosed("batcher is closed")
+            raise ServeClosed(f"batcher {self.name!r} is closed")
         if reason is not None:
             self._count_shed(len(docs), reason, priority)
             raise ServeOverloaded(
@@ -374,6 +381,8 @@ class ContinuousBatcher:
         REGISTRY.incr("serve/shed_requests")
         REGISTRY.incr("serve/shed_rows", rows)
         REGISTRY.incr(f"serve/shed_{reason}")
+        if self.tenant is not None:
+            REGISTRY.incr(f"zoo/shed/{self.tenant}")
         log_event(
             _log, "serve.shed", reason=reason, rows=rows, priority=priority,
             queued_rows=self._queue.queued_rows, trace_id=current_trace_id(),
@@ -409,15 +418,16 @@ class ContinuousBatcher:
             finally:
                 self._queue.done()
 
-    @staticmethod
-    def _cache_scope(entry) -> str:
-        """Cache key scope = model identity + version name. Version names
-        repeat across sources (every registry auto-names "v1", every static
-        source pins "v0"), so a cache shared across batchers needs the
-        model uid (persisted with the model: replicas loading one path
-        share entries) or the static source's token."""
+    def _cache_scope(self, entry) -> str:
+        """Cache key scope = tenant + model identity + version name. Version
+        names repeat across sources (every registry auto-names "v1", every
+        static source pins "v0"), so a cache shared across batchers needs
+        the model uid (persisted with the model: replicas loading one path
+        share entries) or the static source's token; a zoo's batcher
+        prefixes its tenant, so tenants address disjoint entries."""
         scope = getattr(getattr(entry, "model", None), "uid", None) or getattr(entry, "uid", None)
-        return f"{scope}:{entry.version}" if scope else entry.version
+        scope = f"{scope}:{entry.version}" if scope else entry.version
+        return scope if self.tenant is None else f"tenant:{self.tenant}|{scope}"
 
     def _segmented(self, entry, docs: list[bytes], opts: SegmentOptions) -> list[dict]:
         """One coalesced segment-mode dispatch, through the score cache.
@@ -615,7 +625,7 @@ class ContinuousBatcher:
         admitted request is ever dropped. With ``drain=False`` queued
         requests fail with :class:`ServeClosed` (still never a hang)."""
         for req in self._queue.close(drain=drain):
-            self._complete(req, error=ServeClosed("batcher closed"))
+            self._complete(req, error=ServeClosed(f"batcher {self.name!r} closed"))
         self._thread.join(timeout=30.0)
         log_event(_log, "serve.batcher.close", drained=drain)
 

@@ -13,9 +13,16 @@ Pass a :class:`~..resilience.policy.RetryPolicy` as ``retry_policy`` and the
 idempotent calls (``score``/``detect``/``segment`` and every GET but the
 probes) ride it: a 503 sleeps ``max(Retry-After, seeded-jitter backoff)``
 and retries, bounded by ``max_attempts`` and, where the request carries
-``deadline_ms``, by its deadline. 400 and 504 are never retried; transport
-failures follow :func:`~..resilience.policy.is_retryable`. Admin calls
-(``swap``/``rollback``) never retry.
+``deadline_ms``, by its deadline. With a
+:class:`~..resilience.policy.RetryBudget` as ``retry_budget`` every success
+deposits and every re-send withdraws a token, and an empty budget surfaces
+the error. 400, 422 (a quarantined query of death) and 504 are never
+retried; transport failures follow
+:func:`~..resilience.policy.is_retryable`. Admin calls (``swap``/
+``rollback``) never retry.
+
+``tenant`` (on the client or per call) names a model zoo's tenant; unset,
+the wire is the single-model one and a zoo answers from its default tenant.
 """
 
 from __future__ import annotations
@@ -27,7 +34,7 @@ from typing import Sequence
 
 import numpy as np
 
-from ..resilience.policy import RetryPolicy, is_retryable
+from ..resilience.policy import RetryBudget, RetryPolicy, is_retryable
 from ..telemetry import REGISTRY
 from ..utils.logging import get_logger, log_event
 
@@ -56,7 +63,8 @@ class ServeHTTPError(RuntimeError):
 
 
 class ServeClient:
-    """JSON client for one serving endpoint (host, port)."""
+    """JSON client for one serving endpoint (host, port), optionally bound to
+    a zoo ``tenant``."""
 
     def __init__(
         self,
@@ -65,11 +73,15 @@ class ServeClient:
         *,
         timeout_s: float = 60.0,
         retry_policy: RetryPolicy | None = None,
+        retry_budget: RetryBudget | None = None,
+        tenant: str | None = None,
     ):
         self.host = host
         self.port = port
         self.timeout_s = timeout_s
         self.retry_policy = retry_policy
+        self.retry_budget = retry_budget
+        self.tenant = tenant
 
     # ------------------------------------------------------------- wire -----
     def _request_once(self, method: str, path: str, payload: dict | None = None):
@@ -90,7 +102,7 @@ class ServeClient:
     @staticmethod
     def _retryable(exc: Exception) -> bool:
         """503 (shed or closed: the server asked for a later retry) and
-        transport failures retry; 400 and 504 never do."""
+        transport failures retry; 400, 422 and 504 never do."""
         if isinstance(exc, ServeHTTPError):
             return exc.status == 503
         return isinstance(exc, HTTPException) or is_retryable(exc)
@@ -107,11 +119,15 @@ class ServeClient:
         if idempotent is None:
             idempotent = method == "GET"
         policy = self.retry_policy
+        budget = self.retry_budget
         attempt = 0
         while True:
             attempt += 1
             try:
-                return self._request_once(method, path, payload)
+                result = self._request_once(method, path, payload)
+                if budget is not None:
+                    budget.record_success()
+                return result
             except Exception as e:
                 if (
                     policy is None
@@ -137,6 +153,8 @@ class ServeClient:
                             remaining_s=round(remaining, 6),
                         )
                         raise
+                if budget is not None and not budget.try_spend(reason="client_retry"):
+                    raise
                 REGISTRY.incr("serve/client_retries")
                 log_event(
                     _log, "serve.client.retry", path=path, attempt=attempt,
@@ -147,7 +165,14 @@ class ServeClient:
                     time.sleep(delay)
 
     # -------------------------------------------------------------- api -----
-    def _post(self, path: str, payload: dict, deadline_ms, trace_id) -> dict:
+    def _with_tenant(self, payload: dict, tenant: str | None) -> dict:
+        tenant = self.tenant if tenant is None else tenant
+        if tenant is not None:
+            payload["tenant"] = tenant
+        return payload
+
+    def _post(self, path: str, payload: dict, deadline_ms, trace_id, tenant) -> dict:
+        self._with_tenant(payload, tenant)
         deadline_s = None
         if deadline_ms is not None:
             payload["deadline_ms"] = deadline_ms
@@ -163,12 +188,14 @@ class ServeClient:
         priority: str = "interactive",
         deadline_ms: float | None = None,
         trace_id: str | None = None,
+        tenant: str | None = None,
     ) -> tuple[np.ndarray, dict]:
         """(float32 [N, L] scores, response metadata). The server sends each
         f32 as the exact double it widens to, and JSON doubles round-trip,
         so these scores equal the server-side arrays bit for bit."""
         data = self._post(
-            "/score", {"texts": list(texts), "priority": priority}, deadline_ms, trace_id
+            "/score", {"texts": list(texts), "priority": priority}, deadline_ms, trace_id,
+            tenant,
         )
         scores = np.asarray(data.pop("scores"), dtype=np.float32)
         if scores.size == 0:
@@ -182,12 +209,14 @@ class ServeClient:
         priority: str = "interactive",
         deadline_ms: float | None = None,
         trace_id: str | None = None,
+        tenant: str | None = None,
     ) -> tuple[list, dict]:
         """(predicted labels, response metadata). A model whose
         ``resultMode`` is ``"segment"`` answers ``/detect`` with
         segmentation result dicts (``meta["mode"] == "segment"``)."""
         data = self._post(
-            "/detect", {"texts": list(texts), "priority": priority}, deadline_ms, trace_id
+            "/detect", {"texts": list(texts), "priority": priority}, deadline_ms, trace_id,
+            tenant,
         )
         if "results" in data:
             return data.pop("results"), data
@@ -202,6 +231,7 @@ class ServeClient:
         priority: str = "interactive",
         deadline_ms: float | None = None,
         trace_id: str | None = None,
+        tenant: str | None = None,
     ) -> tuple[list[dict], dict]:
         """(segmentation result dicts, response metadata) through
         ``/detect?mode=segment``. ``top_k``/``reject_threshold`` override
@@ -211,7 +241,7 @@ class ServeClient:
             payload["top_k"] = top_k
         if reject_threshold is not None:
             payload["reject_threshold"] = reject_threshold
-        data = self._post("/detect?mode=segment", payload, deadline_ms, trace_id)
+        data = self._post("/detect?mode=segment", payload, deadline_ms, trace_id, tenant)
         return data.pop("results"), data
 
     def healthz(self) -> dict:
@@ -239,11 +269,13 @@ class ServeClient:
         scrape wants the state now."""
         return self._request("GET", "/telemetryz", idempotent=False)
 
-    def swap(self, path: str, *, version: str | None = None) -> str:
+    def swap(self, path: str, *, version: str | None = None, tenant: str | None = None) -> str:
         payload: dict = {"path": path}
         if version is not None:
             payload["version"] = version
+        self._with_tenant(payload, tenant)
         return self._request("POST", "/admin/swap", payload, idempotent=False)["version"]
 
-    def rollback(self) -> str:
-        return self._request("POST", "/admin/rollback", None, idempotent=False)["version"]
+    def rollback(self, *, tenant: str | None = None) -> str:
+        payload = self._with_tenant({}, tenant) or None
+        return self._request("POST", "/admin/rollback", payload, idempotent=False)["version"]

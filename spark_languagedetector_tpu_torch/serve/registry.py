@@ -12,10 +12,14 @@ Every request is answered by exactly one version: the dispatcher leases
 the active entry per dispatch, the flip happens between leases, and a
 lease pins its entry until released.
 
-Only the active version holds a runner. A retired version drops its
-runner once its last lease ends (``LanguageDetectorModel.release_runner``),
-so its device tables and pinned staging can be freed; a rollback or
-activation to it builds and prewarms a runner again before the flip.
+Only the active version holds a runner. Each version that holds one takes a
+hold on its model's cached runner (``LanguageDetectorModel.hold_runner``)
+and a retired version gives it back once its last lease ends
+(``release_runner``): the model drops its runner, so the device tables and
+pinned staging can be freed, when no registry holds it any more. Registries
+sharing one model (a fleet's replicas) thus build one runner per model, and
+a rollback or activation rebuilds and prewarms it only when no other
+registry still serves from it.
 
 The swap decomposes into :meth:`ModelRegistry.prepare` (build + prewarm,
 nothing serving-visible) and :meth:`ModelRegistry.commit` (the pointer
@@ -189,8 +193,8 @@ class ModelRegistry:
                 if any(e.version == version for e in self._history):
                     raise ServeError(f"version {version!r} already registered")
                 entry = ModelVersion(
-                    version, prepared.model, prepared.runner, prepared.source,
-                    prepared.metadata,
+                    version, prepared.model, prepared.model.hold_runner(prepared.runner),
+                    prepared.source, prepared.metadata,
                 )
                 old = None if self._active_idx is None else self._history[self._active_idx]
                 self._history.append(entry)
@@ -242,7 +246,8 @@ class ModelRegistry:
             with self._cv:
                 # Runner, pointer and flag in one critical section: a lease
                 # ending on this entry can no longer release the runner.
-                entry.runner = entry.runner or runner
+                if entry.runner is None:
+                    entry.runner = entry.model.hold_runner(runner)
                 old = None if self._active_idx is None else self._history[self._active_idx]
                 self._active_idx = idx
                 entry.retired = False
@@ -310,6 +315,15 @@ class ModelRegistry:
             entry.runner = None
             entry.model.release_runner()
             REGISTRY.incr("serve/released_runners")
+
+    def close(self) -> None:
+        """Give back every version's runner hold (the registry serves no
+        more: a zoo tenant paged out). Call it with no lease held."""
+        with self._cv:
+            for entry in self._history:
+                if entry.runner is not None:
+                    entry.runner = None
+                    entry.model.release_runner()
 
     # ----------------------------------------------------------- access -----
     def peek(self) -> ModelVersion:

@@ -8,7 +8,8 @@ block cheaply.
 Endpoints:
 
   * ``POST /score``   ``{"texts": [...], "priority"?, "deadline_ms"?,
-    "trace_id"?}`` → ``{"scores": [[...]], "version", "trace_id", ...}``
+    "trace_id"?, "tenant"?}`` → ``{"scores": [[...]], "version",
+    "trace_id", ...}``
   * ``POST /detect``  same request → ``{"labels": [...], ...}``;
     ``?mode=segment`` (or a body ``"mode"``, or a model whose
     ``resultMode`` is ``"segment"``) → ``{"results": [...], "mode":
@@ -21,12 +22,20 @@ Endpoints:
   * ``GET  /varz`` stage summaries, counters, gauges, histograms, versions,
     cache stats and the effective config; ``GET /telemetryz`` the
     mergeable registry snapshot stamped with the process identity
-  * ``POST /admin/swap`` ``{"path": "<model dir>", "version"?}`` → hot
-    swap; ``POST /admin/rollback`` → previous version
+  * ``POST /admin/swap`` ``{"path": "<model dir>", "version"?,
+    "tenant"?}`` → hot swap; ``POST /admin/rollback`` → previous version
+
+Backed by a :class:`~..zoo.ModelZoo`, a request's ``"tenant"`` (absent:
+the zoo's default tenant) picks that tenant's registry and batcher, and
+responses carry the ``tenant``; a single-model server answers 400 to an
+explicit tenant.
 
 Failure mapping: a shed answers 503 with ``Retry-After``, a blown
-deadline 504, a bad request 400, a dispatch error 500 with the error;
-never a hang, and never a batch scored elsewhere than its runner's device.
+deadline 504, a quarantined query of death 422, a bad request 400, a
+dispatch error 500 with the error (a kernel failure by its
+``KernelBuildError``/``KernelLaunchError`` name); never a hang, and never a
+batch scored elsewhere than its runner's device. A replica's own error
+surfacing through the fleet router keeps its status and body.
 
 Texts are encoded server-side with the active model's ``predictEncoding``
 param, as ``model.transform`` would.
@@ -59,6 +68,8 @@ from .batcher import (
     ServeError,
     ServeOverloaded,
 )
+from .client import ServeHTTPError
+from .quarantine import QueryQuarantined
 from .registry import ModelRegistry
 
 _log = get_logger("serve.server")
@@ -154,6 +165,18 @@ class _Handler(BaseHTTPRequestHandler):
             self._reply(504, {"error": str(e), "deadline": True})
         except ServeClosed as e:
             self._reply(503, {"error": str(e), "closed": True})
+        except ServeHTTPError as e:
+            # A replica's answer surfacing through the router front (a 400
+            # or 504 the router does not retry): same status, body and
+            # Retry-After as the replica gave.
+            payload = e.payload if isinstance(e.payload, dict) else {"error": str(e)}
+            headers = {
+                "Retry-After": v for k, v in (e.headers or {}).items()
+                if k.lower() == "retry-after"
+            }
+            self._reply(e.status, payload, headers)
+        except QueryQuarantined as e:  # before ValueError: its subclass
+            self._reply(422, {"error": str(e), "quarantined": True, "signature": e.signature})
         except (ValueError, KeyError) as e:
             self._reply(400, {"error": repr(e)})
         except Exception as e:
@@ -186,6 +209,10 @@ class JsonHTTPFront(ThreadingHTTPServer):
     def address(self) -> tuple[str, int]:
         return self.server_address[0], self.server_address[1]
 
+    @property
+    def draining(self) -> bool:
+        return self._draining
+
     @contextmanager
     def track_request(self):
         """Count one in-flight HTTP request, so a draining stop knows when
@@ -208,30 +235,33 @@ class JsonHTTPFront(ThreadingHTTPServer):
         log_event(_log, "serve.http.start", host=self.address[0], port=self.address[1])
         return self
 
-    def stop(self):
+    def stop(self, *, drain: bool = True, drain_timeout_s: float = DRAIN_TIMEOUT_S):
         """Stop serving: readiness flips false, the listener stops
-        accepting, every accepted request is answered (bounded by
-        DRAIN_TIMEOUT_S), and only then is the backend torn down."""
+        accepting, and with ``drain`` every accepted request is answered
+        (bounded by ``drain_timeout_s``) before the backend is torn down.
+        ``drain=False`` is an abrupt death: queued requests fail at once
+        with 503 (``ServeClosed``), never hang."""
         self._draining = True
         self.shutdown()
-        deadline = time.monotonic() + DRAIN_TIMEOUT_S
-        with self._inflight_cv:
-            while self._inflight > 0:
-                remaining = deadline - time.monotonic()
-                if remaining <= 0:
-                    log_event(
-                        _log, "serve.http.drain_timeout",
-                        inflight=self._inflight, port=self.address[1],
-                    )
-                    break
-                self._inflight_cv.wait(min(remaining, 0.2))
-        self._teardown()
+        if drain:
+            deadline = time.monotonic() + drain_timeout_s
+            with self._inflight_cv:
+                while self._inflight > 0:
+                    remaining = deadline - time.monotonic()
+                    if remaining <= 0:
+                        log_event(
+                            _log, "serve.http.drain_timeout",
+                            inflight=self._inflight, port=self.address[1],
+                        )
+                        break
+                    self._inflight_cv.wait(min(remaining, 0.2))
+        self._teardown(drain)
         self.server_close()
         if self._thread is not None:
             self._thread.join(timeout=10.0)
-        log_event(_log, "serve.http.stop", port=self.address[1])
+        log_event(_log, "serve.http.stop", port=self.address[1], drained=drain)
 
-    def _teardown(self) -> None:  # subclass hook
+    def _teardown(self, drain: bool) -> None:  # subclass hook
         pass
 
     def __enter__(self):
@@ -258,13 +288,14 @@ class JsonHTTPFront(ThreadingHTTPServer):
 
 
 class ServingServer(JsonHTTPFront):
-    """HTTP front end bound to a registry and a batcher.
+    """HTTP front end bound to a registry and a batcher, or to a model zoo.
 
-    ``registry`` may be a :class:`~.registry.ModelRegistry` or a
+    ``registry`` may be a :class:`~.registry.ModelRegistry`, a
     ``LanguageDetectorModel`` (installed into a fresh registry on the
-    model's own device). The server's batcher takes env-tuned knobs, or
-    the explicit ones in ``batcher_kw``. ``port=0`` binds an ephemeral
-    port.
+    model's own device) or a :class:`~..zoo.ModelZoo`, whose tenants bring
+    their own registries and batchers. Otherwise the server's batcher is
+    ``batcher``, or one built from env-tuned knobs and the explicit ones in
+    ``batcher_kw``. ``port=0`` binds an ephemeral port.
     """
 
     def __init__(
@@ -273,26 +304,44 @@ class ServingServer(JsonHTTPFront):
         *,
         host: str = "127.0.0.1",
         port: int = 8000,
+        batcher: ContinuousBatcher | None = None,
         **batcher_kw,
     ):
-        if not hasattr(registry, "lease"):
-            model = registry
-            registry = ModelRegistry(device=model.get("device"))
-            registry.install(model)
-        self.registry = registry
-        self.batcher = ContinuousBatcher(registry, **batcher_kw)
+        self.zoo = None
+        self.registry = None
+        self.batcher = None
+        self._own_batcher = False
+        if hasattr(registry, "runtime") and hasattr(registry, "tenants"):
+            self.zoo = registry  # a ModelZoo, duck-typed: serve never imports zoo
+        else:
+            if not hasattr(registry, "lease"):
+                model = registry
+                registry = ModelRegistry(device=model.get("device"))
+                registry.install(model)
+            self.registry = registry
+            self._own_batcher = batcher is None
+            self.batcher = batcher or ContinuousBatcher(registry, **batcher_kw)
         super().__init__(host, port)
 
-    def _teardown(self) -> None:
-        self.batcher.close()
+    def _teardown(self, drain: bool) -> None:
+        if self.zoo is not None:
+            self.zoo.close(drain=drain)
+        elif self._own_batcher:
+            self.batcher.close(drain=drain)
 
     # ---------------------------------------------------------- handlers ----
-    @staticmethod
-    def _no_tenant(payload: dict | None) -> None:
-        # The model zoo (tenants) is not ported: an explicit tenant is a
-        # 400, never an answer from the wrong model.
-        if payload and payload.get("tenant") is not None:
-            raise ValueError('"tenant" requires a model-zoo-backed server')
+    def _route(self, payload: dict):
+        """(registry, batcher, tenant name or None) of one request. A
+        single-model server refuses an explicit tenant (400); on a zoo no
+        tenant means the default one, an unknown tenant is a 400 and a
+        failed cold load that tenant's 503."""
+        tenant = payload.get("tenant")
+        if self.zoo is None:
+            if tenant is not None:
+                raise ValueError('"tenant" requires a model-zoo-backed server')
+            return self.registry, self.batcher, None
+        entry, rt = self.zoo.runtime(tenant)
+        return rt.registry, rt.batcher, entry.name
 
     @staticmethod
     def _segment_options(payload: dict, model) -> SegmentOptions:
@@ -312,7 +361,6 @@ class ServingServer(JsonHTTPFront):
         return SegmentOptions(top_k=int(top_k), reject_threshold=float(reject))
 
     def score(self, payload: dict, *, labels: bool, mode: str | None = None) -> dict:
-        self._no_tenant(payload)
         texts = payload.get("texts", payload.get("docs"))
         if not isinstance(texts, list) or not all(isinstance(t, str) for t in texts):
             raise ValueError('"texts" must be a list of strings')
@@ -322,26 +370,39 @@ class ServingServer(JsonHTTPFront):
         deadline_ms = payload.get("deadline_ms")
         if deadline_ms is not None:
             deadline_ms = float(deadline_ms)
-        # Encoding and result mode are resolved at admission against the
-        # active version: keep predictEncoding the same across versions
-        # swapped under traffic.
-        model = self.registry.peek().model
-        encoding = model.get("predictEncoding") if model is not None else UTF8
-        if labels and mode is None and model is not None:
-            mode = model.get("resultMode")
-        if mode not in (None, "label", "segment"):
-            raise ValueError(f"unknown mode {mode!r}; expected 'label' or 'segment'")
-        segment_options = None
-        if labels and mode == "segment":
-            segment_options = self._segment_options(payload, model)
-        docs = [text_to_bytes(t, encoding) for t in texts]
-        result = self.batcher.submit(
-            docs, priority=priority,
-            want_labels=labels and segment_options is None,
-            segment_options=segment_options,
-            deadline_ms=deadline_ms,
-            trace_id=payload.get("trace_id"),
-        ).result()
+        want_mode = mode
+        # On a zoo an eviction can close the tenant's batcher between the
+        # route and the admission: route again (a cold load), at most three
+        # times, so a server that is really closed still answers 503.
+        for attempt in range(3):
+            registry, batcher, tenant = self._route(payload)
+            # Encoding and result mode are resolved at admission against
+            # the active version: keep predictEncoding the same across
+            # versions swapped under traffic.
+            model = registry.peek().model
+            encoding = model.get("predictEncoding") if model is not None else UTF8
+            mode = want_mode
+            if labels and mode is None and model is not None:
+                mode = model.get("resultMode")
+            if mode not in (None, "label", "segment"):
+                raise ValueError(f"unknown mode {mode!r}; expected 'label' or 'segment'")
+            segment_options = None
+            if labels and mode == "segment":
+                segment_options = self._segment_options(payload, model)
+            docs = [text_to_bytes(t, encoding) for t in texts]
+            try:
+                result = batcher.submit(
+                    docs, priority=priority,
+                    want_labels=labels and segment_options is None,
+                    segment_options=segment_options,
+                    deadline_ms=deadline_ms,
+                    trace_id=payload.get("trace_id"),
+                ).result()
+            except ServeClosed:
+                if self.zoo is None or attempt == 2:
+                    raise
+                continue
+            break
         timing = {
             "queue_wait_ms": round(result.queue_wait_s * 1e3, 3),
             "dispatch_ms": round(result.dispatch_s * 1e3, 3),
@@ -353,6 +414,8 @@ class ServingServer(JsonHTTPFront):
             "server_timing": {**timing, "rows_coalesced": result.rows_coalesced},
             "server": process_identity(),
         }
+        if tenant is not None:
+            out["tenant"] = tenant
         if segment_options is not None:
             out["mode"] = "segment"
             out["results"] = result.results
@@ -365,14 +428,26 @@ class ServingServer(JsonHTTPFront):
         return out
 
     def swap(self, payload: dict) -> dict:
-        self._no_tenant(payload)
         path = payload.get("path")
         if not isinstance(path, str) or not path:
             raise ValueError('"path" must name a saved model directory')
+        tenant = payload.get("tenant")
+        if self.zoo is not None:
+            version = self.zoo.load(tenant, path, version=payload.get("version"))
+            return {"version": version, "tenant": tenant or self.zoo.default_tenant}
+        if tenant is not None:
+            raise ValueError('"tenant" requires a model-zoo-backed server')
         return {"version": self.registry.load(path, version=payload.get("version"))}
 
     def rollback(self, payload: dict | None = None) -> dict:
-        self._no_tenant(payload)
+        tenant = (payload or {}).get("tenant")
+        if self.zoo is not None:
+            return {
+                "version": self.zoo.rollback(tenant),
+                "tenant": tenant or self.zoo.default_tenant,
+            }
+        if tenant is not None:
+            raise ValueError('"tenant" requires a model-zoo-backed server')
         return {"version": self.registry.rollback()}
 
     def readyz(self) -> dict:
@@ -383,6 +458,20 @@ class ServingServer(JsonHTTPFront):
         version = None
         if self._draining:
             reasons.append("draining")
+        if self.zoo is not None:
+            # A zoo is ready once its default tenant is registered, resident
+            # or not; per-tenant detail is in the healthz/varz zoo blocks.
+            try:
+                version = self.zoo.version(None)
+            except ServeError:
+                reasons.append("no_default_tenant")
+            return {
+                "ready": not reasons,
+                "reasons": reasons,
+                "version": version,
+                "tenants": len(self.zoo.tenants()),
+                "draining": self._draining,
+            }
         try:
             entry = self.registry.peek()
             version = entry.version
@@ -409,9 +498,12 @@ class ServingServer(JsonHTTPFront):
             "reasons": ready["reasons"],
             "draining": self._draining,
             "uptime_s": round(time.monotonic() - self._started, 3),
-            "batcher": self.batcher.stats(),
-            "cache": None if self.batcher.cache is None else self.batcher.cache.stats(),
         }
+        out["cache"] = self._cache_stats()
+        if self.zoo is not None:
+            out["zoo"] = self.zoo.healthz()
+            return out
+        out["batcher"] = self.batcher.stats()
         try:
             entry = self.registry.peek()
             out["version"] = entry.version
@@ -435,11 +527,17 @@ class ServingServer(JsonHTTPFront):
                 name: h for name, h in snap["histograms"].items()
                 if not name.startswith(("span:", "span_device:"))
             },
-            "versions": self.registry.versions(),
-            "cache": None if self.batcher.cache is None else self.batcher.cache.stats(),
+            "versions": [] if self.registry is None else self.registry.versions(),
+            "zoo": None if self.zoo is None else self.zoo.varz(),
+            "cache": self._cache_stats(),
             # Every LANGDETECT_* knob's live value and provenance.
             "config": exec_config.effective_config(),
         }
+
+
+    def _cache_stats(self):
+        cache = self.zoo.cache if self.zoo is not None else self.batcher.cache
+        return None if cache is None else cache.stats()
 
 
 def main(argv: list[str] | None = None) -> int:

@@ -20,12 +20,19 @@
   a fault plan with a dead-letter queue, a checkpoint and four workers, and
   runs the auto-refit loop (accumulator, fit-state checkpoint, kill,
   resume, hot swap through the registry) with a metrics sink armed.
-* An AST scan finds no import of either anywhere in the port, ``segment/``
-  included, nor in ``chip_smoke.py``, and no ``importlib`` in the port's
-  pipeline loader, which looks stage classes up in a fixed table.
+* A sixth, with ``jax`` unimportable, runs a three-replica fleet behind the
+  router's HTTP front (a kill and failover, a quarantined query of death, a
+  fleet swap and rollback, the collector's scrape) and a model zoo of
+  tenants saved on disk behind the HTTP server (an eviction, a cold
+  reload).
+* An AST scan finds no import of either anywhere in the port, ``segment/``,
+  ``serve/router.py``, ``serve/fleet.py``, ``serve/quarantine.py`` and
+  ``zoo/`` included, nor in ``chip_smoke.py``, and no ``importlib`` in the
+  port's pipeline loader, which looks stage classes up in a fixed table.
 * With no device given and no CUDA card, the entry points raise, the
   serving ones (``ModelRegistry.load``, ``python -m
-  spark_languagedetector_tpu_torch.serve.server``) included.
+  spark_languagedetector_tpu_torch.serve.server``, ``ServeFleet.from_path``
+  and a zoo tenant's cold load, which sheds that tenant) included.
 """
 
 import ast
@@ -301,6 +308,71 @@ def test_streaming_and_refit_run_with_jax_unimportable():
     assert res.stdout.strip().endswith("isolated")
 
 
+def test_fleet_and_zoo_run_with_jax_unimportable():
+    script = textwrap.dedent(
+        """
+        import sys, tempfile
+        for name in ("jax", "jaxlib", "spark_languagedetector_tpu"):
+            sys.modules[name] = None  # any import of it raises ImportError
+        from spark_languagedetector_tpu_torch import LanguageDetector, Table
+        from spark_languagedetector_tpu_torch.serve import (
+            QuarantineTable, RouterServer, ServeClient, ServeFleet, ServeHTTPError,
+            ServingServer)
+        from spark_languagedetector_tpu_torch.telemetry import REGISTRY
+        from spark_languagedetector_tpu_torch.telemetry.aggregate import FleetCollector
+        from spark_languagedetector_tpu_torch.zoo import ModelZoo
+        table = Table({"lang": ["en", "de"] * 3,
+                       "fulltext": ["the cat sat", "der hund lief", "a dog barks",
+                                    "die katze schläft", "the end is near",
+                                    "das ende ist nah"]})
+        root = tempfile.mkdtemp()
+        for k, size in (("a", 50), ("b", 30), ("c", 40)):
+            LanguageDetector(["en", "de"], [1, 2, 3], size, device="cpu").fit(table).save(
+                f"{root}/{k}")
+        fleet = ServeFleet.from_path(f"{root}/a", replicas=3, device="cpu", router_kw=dict(
+            breaker_threshold=2, quarantine=QuarantineTable(2)), max_wait_ms=2)
+        fleet.start(probe=False)
+        collector = FleetCollector()
+        with RouterServer(fleet.router, fleet=fleet, port=0, collector=collector) as front:
+            client = ServeClient(*front.address)
+            assert client.detect(["the dog barks", "der hund"])[0] == ["en", "de"]
+            fleet.replica("r0").kill()
+            labels, meta = client.detect(["a dog"])
+            assert labels == ["en"] and meta["replica"] == "r1", meta
+            client.detect(["a dog"])  # a second death: quarantined
+            try:
+                client.detect(["a dog"])
+                raise AssertionError("not quarantined")
+            except ServeHTTPError as e:
+                assert e.status == 422 and e.payload["quarantined"], e
+            assert client.swap(f"{root}/b") == "v2" and client.rollback() == "v1"
+            assert collector.scrape("r1", ServeClient(*fleet.replica("r1").address).telemetryz)
+        fleet.close()
+        zoo = ModelZoo(device="cpu", resident_models=1, max_wait_ms=2)
+        for k in "abc":
+            zoo.add_tenant(f"t{k}", path=f"{root}/{k}")
+        with ServingServer(zoo, port=0) as server:
+            client = ServeClient(*server.address)
+            for tenant in ("ta", "tb", "ta"):
+                labels, meta = client.detect(["der hund"], tenant=tenant)
+                assert labels == ["de"] and meta["tenant"] == tenant, meta
+            assert list(zoo.resident()) == ["ta"]
+        counters = REGISTRY.snapshot()["counters"]
+        assert counters["zoo/evictions"] == 2 and counters["zoo/cold_loads"] == 3, counters
+        bad = sorted(m for m, mod in sys.modules.items() if mod is not None
+                     and m.split(".")[0] in ("jax", "jaxlib", "spark_languagedetector_tpu"))
+        assert not bad, bad
+        print("isolated")
+        """
+    )
+    res = subprocess.run(
+        [sys.executable, "-c", script],
+        cwd=PORT_DIR.parent, capture_output=True, text=True, timeout=120,
+    )
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("isolated")
+
+
 def test_serving_entry_points_raise_without_a_card(tmp_path):
     """``ModelRegistry.load`` with no device, and the server's module entry
     point, need the card: with none visible they raise, never serve on the
@@ -316,11 +388,23 @@ def test_serving_entry_points_raise_without_a_card(tmp_path):
         import torch
         torch.cuda.is_available = lambda: False
         from spark_languagedetector_tpu_torch.serve import ModelRegistry
+        from spark_languagedetector_tpu_torch.serve import ServeFleet
+        from spark_languagedetector_tpu_torch.zoo import ModelZoo, TenantLoadShed
+        for call in (lambda: ModelRegistry().load({str(tmp_path / "m")!r}),
+                     lambda: ServeFleet.from_path({str(tmp_path / "m")!r}, replicas=2)):
+            try:
+                call()
+                raise AssertionError("served without a card")
+            except RuntimeError as e:
+                assert "no CUDA device" in str(e), e
+        zoo = ModelZoo(max_wait_ms=2)
+        zoo.add_tenant("t", path={str(tmp_path / "m")!r})
         try:
-            ModelRegistry().load({str(tmp_path / "m")!r})
-        except RuntimeError as e:
-            assert "no CUDA device" in str(e), e
-            print("refused")
+            zoo.runtime("t")
+            raise AssertionError("a tenant loaded without a card")
+        except TenantLoadShed as e:
+            assert "no CUDA device" in str(e.__cause__), e.__cause__
+        print("refused")
         """
     )
     res = subprocess.run(
@@ -365,7 +449,12 @@ def test_no_module_of_the_port_imports_jax():
         p.name for p in (PORT_DIR / "segment").glob("*.py")
     }
     assert {"__init__.py", "batcher.py", "cache.py", "registry.py", "client.py",
-            "server.py"} <= {p.name for p in (PORT_DIR / "serve").glob("*.py")}
+            "server.py", "router.py", "fleet.py", "quarantine.py"} <= {
+        p.name for p in (PORT_DIR / "serve").glob("*.py")
+    }
+    assert {"__init__.py", "residency.py", "zoo.py"} <= {
+        p.name for p in (PORT_DIR / "zoo").glob("*.py")
+    }
     assert (PORT_DIR / "telemetry" / "aggregate.py").is_file()
     assert {"__init__.py", "microbatch.py", "refit.py"} <= {
         p.name for p in (PORT_DIR / "stream").glob("*.py")
