@@ -205,6 +205,33 @@ Phases, one line or more each; any failure exits non-zero before the verdict:
    from-scratch device fit, ``zoo/resident_bytes`` equal to the live CUDA
    tensor bytes the zoo holds, and none left after ``zoo.close()``.
    Printed: ``zoo/cold_load_s`` p50/p99, evictions, requests/s, busy share.
+21. observe  — the telemetry's read side, device gauges, cost model, profiler
+   trace, shape tuner and NaN checks on the models of phases 4 and 6. A fresh
+   runner of each transforms its phase's documents with a JSONL capture,
+   ``LANGDETECT_TRACE_DIR`` and ``LANGDETECT_TELEMETRY_FENCE=1``: labels bit
+   for bit the phase's, a Chrome trace naming ``fused_detect`` (config 5) or
+   ``row_hist`` and ``bigram_hist`` (config 3), those kernels launched, the
+   ``program_flops`` and ``program_bytes_accessed`` gauges of
+   ``score/dispatch`` (and ``score/fused``), ``langdetect_table_bytes`` equal
+   to ``runner.table_bytes()``, and every fenced bytes and flops utilization
+   in ``stage_summary()`` in (0, 1.05]. A segment transform of 60
+   code-switched documents launches ``fused_segment`` with ``segment/docs``,
+   ``/rejects`` and ``/spans`` equal to the results' counts.
+   ``device_bytes_in_use{device="cuda:0"}`` equals ``memory_stats()``'s
+   allocated bytes, and a warm ``build_all()`` counts a hit per kernel and no
+   miss. Phase 11's device fit sets the ``fit/count`` cost gauges. The report
+   renders the config-5 capture, ``compare`` of it against itself exits 0 and
+   against a copy with its ``score/*`` spans twice as slow 1, ``stitch`` of
+   the two captures writes a trace whose spans nest in their parents. Three
+   replicas behind ``RouterServer(slo=SloEvaluator(...))`` with one dispatch
+   attempt: a kill sheds and burns availability (``/healthz`` carries the
+   reason), a revival and a clean leg clear it; time moves through
+   ``ingest(now=)`` and a fake breaker clock. ``exec.tune.solve`` of the
+   config-5 capture gives a profile whose runner labels phase 4's documents
+   bit for bit. Under ``nan_checks()`` a weight table with a NaN raises
+   ``ValueError``; outside, it builds and scores. Printed, claiming nothing:
+   the roofline shares, the memory gauges, the padded bytes before and after
+   tuning, and the profiler's kernel times.
 
 Each phase prints its seconds. Phase 2 also builds the native packer
 (``native/*.cpp`` with g++) and fails if it cannot.
@@ -217,6 +244,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import io
 import json
 import subprocess
 import sys
@@ -458,7 +486,10 @@ HOLD_CYCLES = 20_000_000  # about 10 ms of spinning at the H100's clocks
 # host (a 5 ms spin once let every copy finish before the next take), so
 # an early reuse lands before the copy.
 STAGING_SPIN_CYCLES = 40_000_000
-STAGING_ATTEMPTS = 3  # runs of a staging check until a take has waited on a copy
+# Runs of a staging check until a take has waited on a copy. The stream
+# leg's four workers meet a pending copy only now and then (0 to 23 waits a
+# run on the card), and once three runs in a row met none.
+STAGING_ATTEMPTS = 6
 STAGING_BATCH = 256  # rows per batch there: many batches of one size class per call
 LADDER_DOCS = 400  # documents of the ladder check (its host rung scores on the CPU)
 LADDER_BATCH = 128  # rows per batch there, so the open breaker short-circuits some
@@ -3904,6 +3935,391 @@ def phase_zoo(torch, dev, case5: FitCase, texts5, smi_line) -> dict:
     return launches
 
 
+# ------------------------------------------------------------ observe ------
+OBSERVE_SLO_REQUESTS = 10  # requests per leg of the SLO drill
+OBSERVE_KERNELS = ("fused_detect", "fused_segment", "row_hist", "bigram_hist")
+
+
+@contextlib.contextmanager
+def env_set(**values):
+    """Set environment variables for the block, then restore them."""
+    import os
+
+    old = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+@contextlib.contextmanager
+def telemetry_capture(path):
+    """The registry, reset, with a JSONL sink on ``path``; a snapshot is
+    flushed into it when the block ends."""
+    from spark_languagedetector_tpu_torch.telemetry import REGISTRY
+    from spark_languagedetector_tpu_torch.telemetry.export import JsonlSink
+
+    REGISTRY.reset()
+    sink = JsonlSink(str(path))
+    REGISTRY.add_sink(sink)
+    try:
+        yield REGISTRY
+        REGISTRY.flush()
+    finally:
+        REGISTRY.remove_sink(sink)
+        sink.close()
+
+
+def trace_kernel_ms(trace_dir) -> dict[str, list[float]]:
+    """Each port kernel's launches (ms each) in the Chrome traces under
+    ``trace_dir``, found by name among the profiler's kernel events."""
+    from spark_languagedetector_tpu_torch.ops._kernels import KERNELS
+
+    out: dict[str, list[float]] = {}
+    for f in sorted(Path(trace_dir).rglob("trace.json")):
+        for ev in json.loads(f.read_text())["traceEvents"]:
+            if ev.get("cat") != "kernel":
+                continue
+            for k in KERNELS:
+                if k.name in str(ev.get("name", "")):
+                    out.setdefault(k.name, []).append(float(ev.get("dur", 0.0)) / 1e3)
+    return out
+
+
+def roofline_shares(what: str, summary: dict) -> dict[str, float]:
+    """Every fenced stage's bytes and flops utilization, each gated in
+    (0, 1.05]: more than the peak means the cost model is wrong."""
+    shares = {}
+    for path, entry in sorted(summary.items()):
+        if "device_mean" not in entry:
+            continue
+        for key in ("bytes_utilization", "flops_utilization"):
+            if key in entry:
+                v = entry[key]
+                if not 0.0 < v <= 1.05:
+                    fail(f"observe: {what} {path} {key} = {v} is outside (0, 1.05]")
+                shares[f"{path} {key.split('_')[0]}"] = v
+    if not shares:
+        fail(f"observe: {what}: no fenced roofline share in stage_summary()")
+    return shares
+
+
+def min_nesting_slack(flows) -> tuple[float, int]:
+    """The least slack by which a span lies inside a span of its parent
+    path in the same request flow (the clock-aligned starts and ends of
+    ``stitch.trace_flows``), and the number of spans checked."""
+    least, checked = float("inf"), 0
+    for spans in flows.values():
+        by_path: dict[str, list] = {}
+        for s in spans:
+            by_path.setdefault(s["path"], []).append(s)
+        for s in spans:
+            parents = by_path.get(s["path"].rsplit("/", 1)[0]) if "/" in s["path"] else None
+            if not parents:
+                continue
+            end = s["start_s"] + s["wall_s"]
+            least = min(least, max(min(s["start_s"] - p["start_s"],
+                                       p["start_s"] + p["wall_s"] - end) for p in parents))
+            checked += 1
+    return least, checked
+
+
+def observe_capture(torch, what: str, model, texts, want_ids, tmp, kernels) -> dict:
+    """One transform of ``texts`` by a fresh runner of ``model`` under a
+    JSONL capture, a profiler trace per score call and fenced spans; gated
+    on its labels, its trace, its cost gauges and its roofline shares."""
+    from spark_languagedetector_tpu_torch import Table
+
+    fresh = model.copy()  # a runner of its own: its first call records the cost
+    cap = Path(tmp) / f"{what}.jsonl"
+    trace_dir = Path(tmp) / f"trace_{what}"
+    langs = list(model.profile.languages)
+    with env_set(LANGDETECT_TELEMETRY_FENCE="1", LANGDETECT_TRACE_DIR=str(trace_dir)):
+        reset_launches()
+        with telemetry_capture(cap) as reg:
+            t0 = time.perf_counter()
+            pred = fresh.transform(Table({"fulltext": texts})).column("lang").tolist()
+            wall = time.perf_counter() - t0
+            runner = fresh.runner
+            runner._cost_thread.join()
+            if runner._cost_error is not None:
+                fail(f"observe: {what}: the cost gauges failed: {runner._cost_error!r}")
+            launches = read_launches()
+            summary = reg.stage_summary()
+            gauges = reg.snapshot()["gauges"]
+    idx = {l: i for i, l in enumerate(langs)}
+    ids = np.asarray([idx[l] for l in pred])
+    if not np.array_equal(ids, want_ids):
+        fail(f"observe: {what}: {int((ids != want_ids).sum())} labels differ from the phase's")
+    for k in kernels:
+        if launches[k] <= 0:
+            fail(f"observe: {what}: {k} was not launched")
+    traced = trace_kernel_ms(trace_dir)
+    if not list(trace_dir.rglob("trace.json")):
+        fail(f"observe: {what}: no Chrome trace under {trace_dir}")
+    for k in kernels:
+        if not traced.get(k):
+            fail(f"observe: {what}: the Chrome trace names no {k} kernel")
+    for gauge in ("program_flops", "program_bytes_accessed"):
+        for program in ("score/dispatch",) + (("score/fused",) if runner.strategy == "fused"
+                                              else ()):
+            if not gauges.get(gauge, {}).get(f"program={program}", 0) > 0:
+                fail(f"observe: {what}: {gauge}{{program={program}}} is not set")
+    tb = gauges.get("langdetect_table_bytes", {})
+    if list(tb.values()) != [float(runner.table_bytes())]:
+        fail(f"observe: {what}: langdetect_table_bytes {tb} is not runner.table_bytes() "
+             f"{runner.table_bytes()}")
+    shares = roofline_shares(what, summary)
+    d = summary["score/dispatch"]
+    say("observe", f"{what}: {len(texts)} docs ({runner.strategy}) under the trace, fenced, in "
+        f"{wall:.2f}s; labels bit for bit the phase's; launches "
+        f"{ {k: launches[k] for k in kernels} }; table {runner.table_bytes()} B; score/dispatch "
+        f"{d['count']} calls, device mean {d['device_mean'] * 1e3:.3f} ms, model "
+        f"{d['est_flops_per_call'] / 1e9:.3f} GFLOP and {d['est_bytes_per_call'] / 1e6:.1f} MB "
+        f"per call")
+    say("observe", f"{what}: roofline shares (fenced, analytic model, claiming nothing): "
+        + ", ".join(f"{k} {v:.4%}" for k, v in shares.items()))
+    return {"capture": cap, "launches": launches, "traced": traced, "shares": shares,
+            "runner": runner}
+
+
+def slo_drill(torch, dev, model5, texts5) -> None:
+    """Three replicas of phase 4's model behind the router front with an
+    SloEvaluator: a kill sheds (one dispatch attempt), the availability
+    objective burns and /healthz carries its reason; after a revival and a
+    clean leg it clears. Time moves through ingest(now=) and a fake breaker
+    clock, never through sleeps."""
+    from spark_languagedetector_tpu_torch.serve import (
+        QuarantineTable, RouterServer, ServeClient, ServeFleet, ServeOverloaded)
+    from spark_languagedetector_tpu_torch.telemetry import REGISTRY
+    from spark_languagedetector_tpu_torch.telemetry.aggregate import FleetCollector
+    from spark_languagedetector_tpu_torch.telemetry.slo import SloEvaluator
+
+    class Clock:
+        t = 1000.0
+
+        def __call__(self):
+            return self.t
+
+    clock = Clock()
+    REGISTRY.reset()
+    fleet = ServeFleet([model5] * 3, device=str(dev), max_wait_ms=4, router_kw=dict(
+        dispatch_attempts=1, breaker_threshold=2, breaker_cooldown_s=30.0, clock=clock,
+        quarantine=QuarantineTable(0, name="observe-slo"))).start(probe=False)
+    slo = SloEvaluator(short_window_s=10.0, long_window_s=30.0)
+    collector = FleetCollector()
+    docs = texts5[:8]
+    steps = []
+    try:
+        with RouterServer(fleet.router, fleet=fleet, port=0, collector=collector, slo=slo) as front:
+            client = ServeClient(*front.address)
+
+            def leg(now: float) -> tuple[int, int]:
+                shed = 0
+                for _ in range(OBSERVE_SLO_REQUESTS):
+                    try:
+                        fleet.router.detect(docs)
+                    except ServeOverloaded:
+                        shed += 1
+                slo.ingest(collector.aggregate(), now=now)
+                health = client.healthz()
+                if health["slo"] != slo.status():
+                    fail("observe: /healthz's slo block is not the evaluator's status")
+                reasons = [r for r in health.get("reasons", []) if r.startswith("slo_")]
+                steps.append((now, shed, health["slo"]["burning"], reasons))
+                return shed, len(reasons)
+
+            leg(0.0)
+            fleet.replica("r0").kill()
+            shed, _ = leg(1.0)
+            if shed < 1:
+                fail("observe: the kill shed nothing with one dispatch attempt")
+            fleet.replica("r0").revive()
+            clock.t += 31.0  # past the breaker cooldown: the half-open probe re-admits
+            fleet.router.probe_once()
+            if "r0" not in fleet.router.eligible():
+                fail("observe: r0 was not re-admitted after its revival")
+            leg(20.0)
+    finally:
+        fleet.close()
+    burning = [s for s in steps if s[2]]
+    if [s[2] for s in steps] != [False, True, False] or burning[0][3] != ["slo_availability_burn"]:
+        fail(f"observe: the SLO did not trip on the kill and clear after the revival: {steps}")
+    say("observe", "SLO drill (now, shed, burning, /healthz slo reasons): "
+        + "; ".join(str(s) for s in steps)
+        + f"; slo/alerts {REGISTRY.snapshot()['counters'].get('slo/alerts')}")
+
+
+def phase_observe(torch, dev, model5, texts5, ids5, case3: FitCase, case5: FitCase, tmp,
+                  smi_line) -> dict[str, int]:
+    """Phase 21: the telemetry's read side, device gauges, the cost model,
+    the profiler trace, the shape tuner and the NaN checks on the card.
+    Returns the kernels' launches."""
+    import os
+
+    from spark_languagedetector_tpu_torch import Table
+    from spark_languagedetector_tpu_torch.api.runner import BatchRunner
+    from spark_languagedetector_tpu_torch.exec import config as exec_config
+    from spark_languagedetector_tpu_torch.exec import tune
+    from spark_languagedetector_tpu_torch.ops import _kernels
+    from spark_languagedetector_tpu_torch.telemetry import REGISTRY, compare, report, stitch
+    from spark_languagedetector_tpu_torch.telemetry.gauges import sample_device_gauges
+    from spark_languagedetector_tpu_torch.utils.debug import nan_checks
+
+    total = dict.fromkeys(OBSERVE_KERNELS, 0)
+    c5 = observe_capture(torch, "config5", model5, texts5, ids5, tmp, ("fused_detect",))
+    c3 = observe_capture(torch, "config3", case3.model, case3.texts, case3.ids, tmp,
+                         ("row_hist", "bigram_hist"))
+    for c in (c5, c3):
+        for k in total:
+            total[k] += c["launches"][k]
+
+    # Segment mode: the counters against the results.
+    langs = list(model5.profile.languages)
+    cs_docs, _ = make_codeswitch_corpus(langs, 60, seed=31)
+    seg = model5.copy({"resultMode": "segment"})
+    reset_launches()
+    with telemetry_capture(Path(tmp) / "segment.jsonl") as reg:
+        results = [json.loads(v) for v in
+                   seg.transform(Table({"fulltext": cs_docs})).column("lang").tolist()]
+        counters = reg.snapshot()["counters"]
+        merge = reg.stage_summary().get("segment/merge", {}).get("count")
+    total["fused_segment"] += read_launches()["fused_segment"]
+    want = {"segment/docs": len(results), "segment/rejects": sum(r["rejected"] for r in results),
+            "segment/spans": sum(len(r["spans"]) for r in results)}
+    got = {k: counters.get(k, 0) for k in want}
+    if got != want or merge != 1 or total["fused_segment"] <= 0:
+        fail(f"observe: segment counters {got} (segment/merge spans {merge}, fused_segment "
+             f"launches {total['fused_segment']}) against the results {want}")
+    say("observe", f"segment: {len(cs_docs)} code-switched docs, counters {got} equal the "
+        f"results, fused_segment launches {total['fused_segment']}")
+
+    # Device gauges and the build cache.
+    REGISTRY.reset()
+    torch.cuda.synchronize()
+    sampled = sample_device_gauges()
+    stats = torch.cuda.memory_stats()
+    in_use = sampled.get("device_bytes_in_use", {}).get("cuda:0")
+    if in_use != float(stats["allocated_bytes.all.current"]):
+        fail(f"observe: device_bytes_in_use {in_use} is not memory_stats()'s "
+             f"{stats['allocated_bytes.all.current']}")
+    if sampled["live_buffer_bytes"]["cuda:0"] != float(torch.cuda.memory_allocated(0)):
+        fail("observe: live_buffer_bytes is not torch.cuda.memory_allocated()")
+    gauge = REGISTRY.snapshot()["gauges"]["device_bytes_in_use"]['device=cuda:0']
+    rebuilt = _kernels.build_all()
+    counters = REGISTRY.snapshot()["counters"]
+    if rebuilt or counters.get("compile_cache/hits") != len(_kernels.KERNELS) \
+            or counters.get("compile_cache/misses"):
+        fail(f"observe: a warm rebuild built {sorted(rebuilt)}, counters {counters}")
+    say("observe", f"device gauges: device_bytes_in_use{{device=cuda:0}} {gauge:.0f} B = "
+        f"memory_stats() allocated, live_buffer_bytes {sampled['live_buffer_bytes']['cuda:0']:.0f}"
+        f" B, reserved {torch.cuda.memory_reserved(0)} B; warm rebuild: "
+        f"compile_cache/hits {counters['compile_cache/hits']}, no miss")
+
+    # The device fit's count cost (phase 11's fit).
+    with env_set(LANGDETECT_TELEMETRY_FENCE="1"):
+        REGISTRY.reset()
+        case5.det.copy({"fitBackend": "device"}).fit(case5.table)
+        fit_summary = REGISTRY.stage_summary()
+        fit_gauges = REGISTRY.snapshot()["gauges"]
+    for gauge in ("program_flops", "program_bytes_accessed"):
+        if not fit_gauges.get(gauge, {}).get("program=fit/count", 0) > 0:
+            fail(f"observe: the device fit set no {gauge}{{program=fit/count}}")
+    fit_shares = roofline_shares("fit5", fit_summary)
+    say("observe", "fit5 device fit roofline shares (fenced, claiming nothing): "
+        + ", ".join(f"{k} {v:.4%}" for k, v in fit_shares.items() if k.startswith("fit/")))
+
+    # The read side on the captures.
+    def quiet(main, argv) -> int:
+        """A CLI's exit code, its report kept off this script's output."""
+        with contextlib.redirect_stdout(io.StringIO()), contextlib.redirect_stderr(io.StringIO()):
+            return main(argv)
+
+    events5 = report.load_events(str(c5["capture"]))
+    text = report.render_report(events5)
+    if "score" not in text or "counters (last snapshot):" not in text:
+        fail("observe: the report did not render the config-5 capture")
+    if quiet(compare.main, [str(c5["capture"]), str(c5["capture"])]) != 0:
+        fail("observe: compare of the config-5 capture against itself did not exit 0")
+    slow = Path(tmp) / "config5_slow.jsonl"
+    with open(slow, "w") as fh:
+        for ev in events5:
+            if ev.get("event") == "telemetry.span" and ev["path"].startswith("score"):
+                ev = {**ev, "wall_s": 2 * ev["wall_s"]}
+                if isinstance(ev.get("device_s"), (int, float)):
+                    ev["device_s"] = 2 * ev["device_s"]
+            fh.write(json.dumps(ev) + "\n")
+    if quiet(compare.main, [str(c5["capture"]), str(slow)]) != 1:
+        fail("observe: compare against the x2-slow copy did not exit 1")
+    stitched = Path(tmp) / "stitched.json"
+    if quiet(stitch.main, [str(c5["capture"]), str(c3["capture"]), "-o", str(stitched)]) != 0:
+        fail("observe: stitch of the config-5 and config-3 captures failed")
+    trace_events = json.loads(stitched.read_text())["traceEvents"]
+    captures = stitch.load_captures([str(c5["capture"]), str(c3["capture"])])
+    slack, checked = min_nesting_slack(stitch.trace_flows(captures))
+    if checked == 0 or slack < -2e-3:
+        fail(f"observe: stitched spans do not nest in their parents (least slack {slack} s "
+             f"over {checked} spans)")
+    say("observe", f"read side: report {len(text.splitlines())} lines; compare self 0, x2 "
+        f"copy 1; stitch {len(trace_events)} trace events, {checked} spans nested in their "
+        f"parents, least slack {slack * 1e3:.3f} ms")
+
+    slo_drill(torch, dev, model5, texts5)
+
+    # The shape tuner on the config-5 capture.
+    profile = tune.solve(events5)
+    prof_path = Path(tmp) / "profile.json"
+    profile.save(str(prof_path))
+    with env_set(**{exec_config.PROFILE_ENV: str(prof_path)}):
+        exec_config.reload_profile()
+        try:
+            tuned = model5.copy()
+            reset_launches()
+            pred = tuned.transform(Table({"fulltext": texts5})).column("lang").tolist()
+            total["fused_detect"] += read_launches()["fused_detect"]
+            buckets = tuned.runner.length_buckets
+        finally:
+            exec_config.reload_profile()
+    idx = {l: i for i, l in enumerate(langs)}
+    if buckets != tuple(profile.tuned["length_buckets"]) or not np.array_equal(
+            np.asarray([idx[l] for l in pred]), ids5):
+        fail(f"observe: the tuned runner (buckets {buckets}) did not give phase 4's labels")
+    src = profile.source
+    say("observe", f"tune: profile {profile.version}, length_buckets {list(buckets)}; padded "
+        f"bytes {src['padded_bytes_default_lattice']} -> {src['padded_bytes_tuned_lattice']} "
+        f"({src['predicted_padded_reduction']:.1%} fewer); labels bit for bit phase 4's")
+
+    # nan_checks: a weight table with one NaN.
+    r5 = model5.runner
+    w = np.array(r5._host_weights)
+    w[0, 0] = np.nan
+    with nan_checks():
+        try:
+            BatchRunner(w, r5._host_lut, r5.spec, device=str(dev))
+            fail("observe: a NaN weight table built a runner under nan_checks()")
+        except ValueError as e:
+            if "non-finite" not in str(e):
+                raise
+    plain_runner = BatchRunner(w, r5._host_lut, r5.spec, device=str(dev))
+    plain_runner.predict_ids([t.encode() for t in texts5[:64]])
+    say("observe", f"nan_checks: the NaN table raised ValueError inside, built and scored "
+        f"outside")
+
+    for what, c, names in (("config-5", c5, ("fused_detect",)),
+                           ("config-3", c3, ("row_hist", "bigram_hist"))):
+        say("observe", f"profiler trace, {what} (claiming nothing): " + "; ".join(
+            f"{k} {len(c['traced'][k])} launches, mean {np.mean(c['traced'][k]):.4f} ms, min "
+            f"{min(c['traced'][k]):.4f} ms" for k in names) + f"; {smi_line}")
+    say("observe", "beside PERF.md's kernel table (CUDA events at each kernel's largest batch): "
+        "fused_detect 0.3374-0.3378, row_hist 0.0894-0.0903, bigram_hist 0.0917-0.0927 ms")
+    return total
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--quick", action="store_true",
@@ -3995,7 +4411,12 @@ def main() -> None:
         del fleet_dirs
     with phase_clock("zoo"):
         zoo_launches = phase_zoo(torch, dev, fit5_case, main_docs, smi_line)
-    segment_entry["launches"] += fleet_launches["fused_segment"]
+    with tempfile.TemporaryDirectory(prefix="observe_smoke_") as tmp, phase_clock("observe"):
+        observe_launches = phase_observe(torch, dev, model, main_docs, main_ids, fit3_case,
+                                         fit5_case, tmp, smi_line)
+    segment_entry["launches"] += fleet_launches["fused_segment"] + observe_launches["fused_segment"]
+    for entry in hist_entries:
+        entry["launches"] += observe_launches.get(entry["name"], 0)
     bad = [k for k in ("jax", "jaxlib", "spark_languagedetector_tpu") if k in sys.modules]
     if bad:
         fail(f"JAX modules were imported: {bad}")
@@ -4008,7 +4429,7 @@ def main() -> None:
         "replaces": "spark_languagedetector_tpu/ops/score_fused.py:308",
         "launches": (launches + stream_launches + refit_launches
                      + fleet_launches["fused_detect"] + storm_launches["fused_detect"]
-                     + zoo_launches["fused_detect"]),
+                     + zoo_launches["fused_detect"] + observe_launches["fused_detect"]),
         "max_abs_err": max(kernel_err, c5_err),
         **times,
     }, segment_entry] + hist_entries}))

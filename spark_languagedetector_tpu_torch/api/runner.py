@@ -69,14 +69,19 @@ runs its kernels' plain versions):
 * ``"gather"``: the row-gather reference (dense, LUT or cuckoo), explicit
   or when nothing above applies.
 
-Not ported yet: the mesh branches (ROADMAP Queue 1 item 11), and the
-profiler trace and cost gauges around a call (item 7).
+Every ``score``/``predict_ids`` call runs under
+:func:`~..utils.profiling.trace` (a no-op unless the ``trace_dir`` knob is
+set), and the first call of each runner records the roofline cost gauges
+of :mod:`..telemetry.cost` on a background thread (``_cost_thread``).
+
+Not ported yet: the mesh branches (ROADMAP Queue 1 item 6).
 """
 
 from __future__ import annotations
 
 import threading
 import time
+import weakref
 from dataclasses import dataclass, field
 from typing import Sequence
 
@@ -119,9 +124,11 @@ from ..ops.vocab import EXACT, EXACT12, HASHED, VocabSpec
 from ..resilience import faults
 from ..resilience.policy import CLOSED, CircuitBreaker, RetryPolicy
 from ..telemetry import REGISTRY, flightrec, span, trace_request
+from ..utils.debug import check_finite
 from ..utils.device import resolve_device
 from ..utils.logging import get_logger, log_event
 from ..utils.metrics import Metrics
+from ..utils.profiling import trace
 
 _log = get_logger("api.runner")
 
@@ -249,6 +256,10 @@ class BatchRunner:
         # True while the last dispatch rode the degradation ladder; drives
         # the langdetect_degraded gauge's reset on fast-path recovery.
         self._degraded_mode = False
+        # The roofline cost gauges: recorded once, by _start_cost_thread.
+        self._cost_recorded = False
+        self._cost_thread: threading.Thread | None = None
+        self._cost_error: Exception | None = None
         self._staging = HostStaging(self.device)
         if self.score_encoding not in ENCODINGS:
             raise ValueError(
@@ -313,6 +324,7 @@ class BatchRunner:
             if self.strategy == name and not ok:
                 raise ValueError(f"strategy={name!r} needs {need}")
         self._build_operands(w, lut)
+        self._check_tables()
         if self.batch_size is None:
             if self.strategy in ("fused", "pallas"):
                 self.batch_size = DEFAULT_FUSED_BATCH_SIZE
@@ -459,6 +471,22 @@ class BatchRunner:
                 self.table_lut = torch.from_numpy(lut).to(dev)
                 held.append(self.table_lut)
         self._table_bytes = sum(t.numel() * t.element_size() for t in held)
+
+    def weight_tables(self) -> list[torch.Tensor]:
+        """The weight tensors the strategy's dispatch reads: the table in
+        its stored dtype, the bigram views, the row-histogram operand.
+        Views may share a storage."""
+        out = [self.table]
+        if self.pallas_state is not None:
+            out += [self.pallas_state.w2, self.pallas_state.w1]
+        if self.hist_state is not None:
+            out.append(self.hist_state.weights_pad)
+        return [t for t in out if t is not None]
+
+    def _check_tables(self) -> None:
+        """Under ``utils.debug.nan_checks``: the uploaded weight tables and
+        scales, checked on their device."""
+        check_finite(self.weight_tables() + [self.scales], "runner weight table")
 
     def kernels(self) -> tuple:
         """The CUDA kernels this runner's strategy can launch, none off the
@@ -768,7 +796,7 @@ class BatchRunner:
         (``score/fetch_bytes``): a label request fetches 4·B bytes of ids
         plus the chunked documents' few score rows, on every rung."""
         # A multi-process mesh assembles a result with process_allgather
-        # here in the JAX runner: ROADMAP Queue 1 item 11.
+        # here in the JAX runner: ROADMAP Queue 1 item 6.
         if started is None:
             started = copy_to_host_async(arr)
         host = host_numpy(started)
@@ -1100,7 +1128,7 @@ class BatchRunner:
                 REGISTRY.incr("score/wire_docs", rows)
 
             # The JAX runner's mesh branch ships padded only: ROADMAP
-            # Queue 1 item 11.
+            # Queue 1 item 6.
             ragged = ragged_fit(batch_docs, pad_to)
             if ragged is not None:
                 rows_flat, step = ragged
@@ -1192,9 +1220,8 @@ class BatchRunner:
         workers = max(1, min(int(workers), len(plan)))
         call_retries: list[int] = []
         # One request trace per call (an ambient one is joined); every span
-        # below, the dispatch workers' included, stamps its id. The JAX
-        # runner's profiler trace around the call is ROADMAP Queue 1 item 7.
-        with trace_request() as req_id, self.metrics.timer("score_s"), span(
+        # below, the dispatch workers' included, stamps its id.
+        with trace_request() as req_id, trace(label="score"), self.metrics.timer("score_s"), span(
             "score", docs=N_in, unique=N, batches=len(plan), strategy=self.strategy,
             strategy_reason=getattr(self, "strategy_reason", "explicit"),
         ) as score_span:
@@ -1206,6 +1233,7 @@ class BatchRunner:
                 for (sel, (tensors, pos), pad_to), handles in zip(pending, started):
                     try:
                         faults.inject("score/fetch")
+                        check_finite(tensors, "fetched score batch")
                         fetched = fetch_all(tensors, handles)
                     except Exception as e:
                         # A failure surfacing only at the fetch: replay the
@@ -1253,13 +1281,42 @@ class BatchRunner:
             out = out[inverse]
         self.metrics.incr("docs_scored", N_in)
         REGISTRY.observe("score/retries_per_call", len(call_retries))
-        # The JAX runner starts its roofline cost-gauge thread here, once per
-        # runner: ROADMAP Queue 1 item 7.
         log_event(
             _log, "runner.score", docs=N_in, unique=N, chunks=n_chunks,
             batches=len(plan), trace_id=req_id,
         )
+        if plan and not self._cost_recorded:
+            self._start_cost_thread(len(plan[0][0]), plan[0][1])
         return out
+
+    def _start_cost_thread(self, rows: int, pad_to: int) -> None:
+        """The roofline cost gauges, once per runner, at the shape of the
+        first batch it ran, off the dispatch path. Join ``_cost_thread`` to
+        wait for them; a failure is kept in ``_cost_error`` and logged. The
+        thread is shielded from fault plans, so it consumes no call of one,
+        and non-daemon, so interpreter exit waits for it. It holds the
+        runner weakly: a runner released before the thread ran (a zoo
+        page-out) frees its device tables at once."""
+        self._cost_recorded = True
+        ref = weakref.ref(self)
+
+        def record():
+            from ..telemetry import cost
+
+            runner = ref()
+            if runner is None:
+                return
+            try:
+                with faults.shield():
+                    cost.record_runner_cost(runner, rows, pad_to)
+            except Exception as e:
+                runner._cost_error = e.with_traceback(None)
+                log_event(_log, "runner.cost_gauges_failed", error=repr(e))
+
+        self._cost_thread = threading.Thread(
+            target=record, name="runner-cost-gauges", daemon=False
+        )
+        self._cost_thread.start()
 
     # -- segmentation (per-cell) path -------------------------------------------
     def segment_cells(

@@ -3,9 +3,8 @@
 Port of ``spark_languagedetector_tpu.exec.config``. The table holds the
 knobs a module of the port reads, under the JAX package's names, env
 spellings, types and defaults, so one environment configures both packages
-alike. The JAX package's other knobs (scale, cold-start, trace and
-peak-rate, multi-process) are listed in ``ROADMAP.md`` against the work that
-will bring their readers.
+alike. The JAX package's other knobs (scale, cold-start, multi-process)
+come with the modules that will read them.
 
 Every knob resolves here, once, with type validation and a single
 precedence rule:
@@ -208,6 +207,12 @@ KNOBS: dict[str, Knob] = _knobs(
          "crash ring-buffer dump dir (1: tmpdir)"),
     Knob("flight_recorder_events", "LANGDETECT_FLIGHT_RECORDER_EVENTS",
          "int", 2048, "crash ring capacity", positive=True),
+    Knob("trace_dir", "LANGDETECT_TRACE_DIR", "str", None,
+         "XProf trace output dir"),
+    Knob("peak_flops", "LANGDETECT_PEAK_FLOPS", "float", None,
+         "roofline FLOP/s anchor override"),
+    Knob("peak_bytes_per_s", "LANGDETECT_PEAK_BYTES_PER_S", "float", None,
+         "roofline bytes/s anchor override"),
     Knob("loglevel", "LANGDETECT_TPU_LOGLEVEL", "str", None,
          "package log level"),
     # --- tuning profile ---------------------------------------------------

@@ -3,8 +3,8 @@
 Port of ``spark_languagedetector_tpu.exec.profile``, whole: the file format
 is shared, so a profile written by either package loads in the other.
 
-A :class:`TuningProfile` is the durable artifact the JAX package's
-``exec.tune`` emits after replaying a telemetry capture — the measured
+A :class:`TuningProfile` is the durable artifact ``exec.tune`` (either
+package's) emits after replaying a telemetry capture — the measured
 defaults that replace the hand-set ``LANGDETECT_*`` knob zoo for one
 deployment. The runner loads it at startup through :mod:`.config` (point
 ``LANGDETECT_TUNING_PROFILE`` at the JSON file); explicit env/ctor values
@@ -38,9 +38,9 @@ SCHEMA_VERSION = 1
 
 # Every field a profile may tune, with its validator: the JAX package's
 # list, so its profiles validate here. Config resolution falls back to
-# ``profile.tuned[knob]`` for the tunable knobs of exec.config.KNOBS; the
-# serve_* and cache_* fields have no knob in the port yet (their readers,
-# the serving layer, are not ported) and are validated only.
+# ``profile.tuned[knob]`` for the tunable knobs of exec.config.KNOBS, the
+# serve_* and cache_* ones included (read by serve/batcher.py and
+# serve/cache.py).
 TUNED_FIELDS: dict[str, callable] = {}
 
 

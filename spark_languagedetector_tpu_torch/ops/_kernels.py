@@ -12,7 +12,10 @@ all started together).
 Libraries land in ``build/kernels/`` at the root of a source checkout, or,
 for an installed package, in a per-user cache directory; either way they are
 named by a hash of their source, the shared headers (``csrc/*.cuh``) and the
-flags, so an edited source never loads a stale build.
+flags, so an edited source never loads a stale build. The build cache counts
+into the telemetry registry: ``compile_cache/hits`` for each library found
+already built, ``compile_cache/misses`` for each ``nvcc`` run, and each
+build's seconds in the ``compile_cache/build_s`` histogram.
 """
 
 from __future__ import annotations
@@ -58,6 +61,14 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas=-v",  # registers, shared memory and spills, in the build log
 )
+
+
+def _count_cache(hit: bool, build_s: float | None = None) -> None:
+    from ..telemetry.registry import REGISTRY
+
+    REGISTRY.incr("compile_cache/hits" if hit else "compile_cache/misses")
+    if build_s is not None:
+        REGISTRY.observe("compile_cache/build_s", build_s)
 
 
 def nvcc_path() -> str:
@@ -116,7 +127,9 @@ class CudaKernel:
             if self._lib is None:
                 try:
                     path = self.library_path
-                    if not path.is_file():
+                    if path.is_file():
+                        _count_cache(hit=True)
+                    else:
                         build_all([self])
                     lib = ctypes.CDLL(str(path))
                     fn = getattr(lib, self.symbol)
@@ -213,6 +226,7 @@ def build_all(
         for k in kernels:
             out = k.library_path
             if out.is_file() and not force:
+                _count_cache(hit=True)
                 continue
             tmp = out.with_suffix(f".tmp{os.getpid()}.so")
             procs.append(
@@ -229,6 +243,7 @@ def build_all(
     for k, out, tmp, t0, p in procs:
         log = p.communicate()[0].decode(errors="replace")
         built[k.name] = (time.perf_counter() - t0, log)
+        _count_cache(hit=False, build_s=built[k.name][0])
         if p.returncode != 0:
             failures.append(f"{k.name} ({k.source.name}):\n{log}")
             tmp.unlink(missing_ok=True)

@@ -29,6 +29,8 @@ import torch
 
 from ..resilience import faults
 from ..telemetry import REGISTRY, span
+from ..telemetry import cost
+from ..utils.debug import check_finite
 from ..utils.device import resolve_device
 from ..utils.logging import get_logger, log_event
 from .vocab import EXACT, VocabSpec, partial_window_ids, window_ids
@@ -268,17 +270,22 @@ def accumulate_counts(
         batches = iter_device_batches(
             items, item_langs, plan, item_mult=item_mult, device=device
         )
+        # The loop's real step shapes, for the count pass's cost gauges.
+        step_shapes: dict[tuple[int, int], int] = {}
         try:
             for batch, lengths, langs, mult, _, _ in batches:
                 faults.inject("fit/count")  # chaos: one call per count step
                 counts = fit_dense_step(
                     batch, lengths, langs, counts, mult, spec=spec, num_langs=num_langs
                 )
+                shape = (int(batch.shape[0]), int(batch.shape[1]))
+                step_shapes[shape] = step_shapes.get(shape, 0) + 1
         finally:
             # A failed step stops the packer before the error leaves, so a
             # replay of the fit starts from a clean slate.
             batches.close()
         count_span.fence(counts)
+    cost.record_fit_count_cost(spec, num_langs, step_shapes, platform=device.type)
     extras = [e for e in (straddle, extra_counts) if e is not None]
     if extras:
         e_ids, e_langs, e_counts = (
@@ -344,6 +351,7 @@ def finalize_counts(
             totals = counts_rows.sum(axis=1, keepdims=True)
             ratio = counts_rows / np.maximum(totals, 1)
         weights = np.log1p(ratio.astype(np.float64))
+    check_finite([weights], "fitted weight table")
     return rows.astype(np.int64), weights
 
 

@@ -318,6 +318,27 @@ def _next_call(site: str, channel: str) -> int:
         return _counters[key]
 
 
+_shield = threading.local()
+
+
+@contextmanager
+def shield():
+    """Suppress fault injection on this thread for the with-block.
+
+    For diagnostic side paths, such as the runner's cost-gauge thread, that
+    run instrumented code without serving anything: a plan firing there
+    would spend a call number in a thread that swallows the fault, and the
+    fault aimed at a serving attempt would never land. Shielded calls
+    advance no counter.
+    """
+    prev = getattr(_shield, "on", False)
+    _shield.on = True
+    try:
+        yield
+    finally:
+        _shield.on = prev
+
+
 def inject(site: str) -> None:
     """Chaos hook for ``error``/``delay`` faults at one execution attempt.
 
@@ -327,7 +348,7 @@ def inject(site: str) -> None:
     number so a chaos run's timeline is reconstructible from the JSONL.
     """
     plan = _plan
-    if plan is None:
+    if plan is None or getattr(_shield, "on", False):
         return
     call = _next_call(site, "exec")
     for spec in plan.specs:

@@ -18,8 +18,12 @@ package's):
                  "confidence": 0.91}, ...],
     }
 
-The JAX package's ``segment/*`` telemetry counters and its ``segment/merge``
-span are not in the port yet (ROADMAP Queue 1 item 7).
+Telemetry, under the JAX package's names: the host decode runs in a
+``segment/merge`` span; ``segment/docs``, ``segment/rejects`` and
+``segment/spans`` count every call (zeros included, so a zero-reject
+capture still carries the ``segment/reject_rate`` denominator), and the
+``segment/spans_per_doc`` and ``segment/span_len_bytes`` histograms
+observe each document and span.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from ..telemetry import REGISTRY, span
 from .calibrate import Calibration, calibrated_probs, normalize_scores
 from .spans import decode_cells, merge_spans, smooth_cells
 from .topk import UNKNOWN, topk_decode
@@ -106,54 +111,64 @@ def segment_documents(
     cells_list, scored_docs = runner.segment_cells(byte_docs, cell=opts.cell)
 
     results: list[dict] = []
-    for cells, doc in zip(cells_list, scored_docs):
-        doc_len = len(doc)
-        smoothed = smooth_cells(cells, opts.smooth)
-        winners, margins = decode_cells(smoothed)
-        spans = merge_spans(
-            winners, margins,
-            cell=opts.cell, doc_len=doc_len, doc=doc,
-            min_span_bytes=opts.min_span_bytes,
-        )
-        # Document-level calibrated distribution from the exact cell sums
-        # (length-normalized — the calibration's logit form).
-        doc_vec = normalize_scores(
-            cells.sum(axis=0, dtype=np.float64)[None, :], [doc_len]
-        )
-        doc_probs = calibrated_probs(doc_vec, calib.temperatures)[0]
-        topk, label, rejected = topk_decode(
-            doc_probs, languages, opts.top_k, opts.reject_threshold
-        )
-
-        out_spans = []
-        for s in spans:
-            span_vec = normalize_scores(
-                cells[s.start // opts.cell: -(-s.end // opts.cell)].sum(
-                    axis=0, dtype=np.float64
-                )[None, :],
-                [s.end - s.start],
+    n_rejects = 0
+    n_spans_total = 0
+    with span("segment/merge", docs=len(cells_list), cell=opts.cell):
+        for cells, doc in zip(cells_list, scored_docs):
+            doc_len = len(doc)
+            smoothed = smooth_cells(cells, opts.smooth)
+            winners, margins = decode_cells(smoothed)
+            spans = merge_spans(
+                winners, margins,
+                cell=opts.cell, doc_len=doc_len, doc=doc,
+                min_span_bytes=opts.min_span_bytes,
             )
-            conf = float(calibrated_probs(span_vec, calib.temperatures)[0][s.lang_id])
-            out_spans.append({
-                "start": int(s.start),
-                "end": int(s.end),
-                # The span-level reject: a span whose own calibrated
-                # confidence sits below the threshold reports unknown
-                # rather than a coin-flip language.
-                "lang": (
-                    UNKNOWN if conf < opts.reject_threshold
-                    else languages[s.lang_id]
-                ),
-                "confidence": round(conf, 6),
+            # Document-level calibrated distribution from the exact cell
+            # sums (length-normalized — the calibration's logit form).
+            doc_vec = normalize_scores(
+                cells.sum(axis=0, dtype=np.float64)[None, :], [doc_len]
+            )
+            doc_probs = calibrated_probs(doc_vec, calib.temperatures)[0]
+            topk, label, rejected = topk_decode(
+                doc_probs, languages, opts.top_k, opts.reject_threshold
+            )
+
+            out_spans = []
+            for s in spans:
+                span_vec = normalize_scores(
+                    cells[s.start // opts.cell: -(-s.end // opts.cell)].sum(
+                        axis=0, dtype=np.float64
+                    )[None, :],
+                    [s.end - s.start],
+                )
+                conf = float(calibrated_probs(span_vec, calib.temperatures)[0][s.lang_id])
+                out_spans.append({
+                    "start": int(s.start),
+                    "end": int(s.end),
+                    # The span-level reject: a span whose own calibrated
+                    # confidence sits below the threshold reports unknown
+                    # rather than a coin-flip language.
+                    "lang": (
+                        UNKNOWN if conf < opts.reject_threshold
+                        else languages[s.lang_id]
+                    ),
+                    "confidence": round(conf, 6),
+                })
+                REGISTRY.observe("segment/span_len_bytes", float(s.end - s.start))
+            results.append({
+                "label": label,
+                "rejected": rejected,
+                "calibrated": calibrated,
+                "topk": [
+                    {"lang": e["lang"], "prob": round(e["prob"], 6)}
+                    for e in topk
+                ],
+                "spans": out_spans,
             })
-        results.append({
-            "label": label,
-            "rejected": rejected,
-            "calibrated": calibrated,
-            "topk": [
-                {"lang": e["lang"], "prob": round(e["prob"], 6)}
-                for e in topk
-            ],
-            "spans": out_spans,
-        })
+            n_rejects += int(rejected)
+            n_spans_total += len(out_spans)
+            REGISTRY.observe("segment/spans_per_doc", float(len(out_spans)))
+    REGISTRY.incr("segment/docs", len(results))
+    REGISTRY.incr("segment/rejects", n_rejects)
+    REGISTRY.incr("segment/spans", n_spans_total)
     return results

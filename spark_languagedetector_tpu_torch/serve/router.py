@@ -776,19 +776,20 @@ class RouterServer(JsonHTTPFront):
 
     ``collector``: a :class:`~..telemetry.aggregate.FleetCollector` whose
     merged view ``/varz`` serves and whose scrape state ``/healthz``
-    reports. ``slo`` stays None: the SLO evaluator
-    (``telemetry/slo.py``) is not ported yet.
+    reports. ``slo``: a :class:`~..telemetry.slo.SloEvaluator` whose
+    status ``/healthz`` and ``/varz`` carry; a burning objective's reason
+    joins ``/healthz``'s ``reasons`` while routing goes on. The caller
+    feeds it (``slo.ingest(collector.aggregate(), now=...)``).
     """
 
     thread_name = "fleet-http"
 
     def __init__(self, router: FleetRouter, *, fleet=None, host: str = "127.0.0.1",
                  port: int = 8000, collector=None, slo=None):
-        if slo is not None:
-            raise ValueError("slo= needs telemetry/slo.py, which is not ported yet")
         self.router = router
         self.fleet = fleet
         self.collector = collector
+        self.slo = slo
         super().__init__(host, port)
 
     def score(self, payload: dict, *, labels: bool, mode: str | None = None) -> dict:
@@ -848,6 +849,11 @@ class RouterServer(JsonHTTPFront):
         out = self.router.healthz()
         out["draining"] = self._draining
         out["uptime_s"] = round(time.monotonic() - self._started, 3)
+        if self.slo is not None:
+            slo = self.slo.status()
+            out["slo"] = slo
+            if slo["burning"]:
+                out["reasons"] = list(out.get("reasons") or []) + slo["reasons"]
         if self.collector is not None:
             out["telemetry"] = {
                 "members": self.collector.members(),
@@ -880,6 +886,6 @@ class RouterServer(JsonHTTPFront):
                 "aggregate": self.collector.aggregate(),
                 "replicas": self.collector.per_replica(),
             },
-            "slo": None,
+            "slo": None if self.slo is None else self.slo.status(),
             "config": exec_config.effective_config(),
         }

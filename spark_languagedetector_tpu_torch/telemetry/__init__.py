@@ -1,8 +1,7 @@
-"""Telemetry core of the port: the registry, spans, request traces and the
-flight recorder, under the JAX package's names.
+"""Telemetry of the port, under the JAX package's names and formats, so
+either package's tools read the other's captures.
 
-Port of the part of ``spark_languagedetector_tpu.telemetry`` that the
-runner itself calls:
+Port of ``spark_languagedetector_tpu.telemetry``:
 
   * :data:`REGISTRY` (:mod:`.registry`) — counters, deterministic-reservoir
     histograms with p50/p90/p99, gauges and span aggregates, one lock;
@@ -18,10 +17,18 @@ runner itself calls:
     post-mortem when a score, fit or stream call raises
     (``LANGDETECT_FLIGHT_RECORDER``);
   * :mod:`.export` — the JSONL event sink and the Prometheus text-format
-    snapshot writer, attached from ``LANGDETECT_METRICS_SINK`` at import.
+    snapshot writer, attached from ``LANGDETECT_METRICS_SINK`` at import;
+  * :mod:`.aggregate` — process identity and the fleet collector;
+  * :mod:`.slo` — declared objectives as multi-window burn rates over the
+    fleet aggregate;
+  * :mod:`.gauges` — the CUDA devices' memory gauges;
+  * :mod:`.cost` — the analytic cost model behind the roofline shares of
+    :meth:`Registry.stage_summary`;
+  * the CLIs over a JSONL capture::
 
-Device gauges, cost models, fleet aggregation, SLOs and the
-report/compare/stitch CLIs are not ported yet.
+        python -m spark_languagedetector_tpu_torch.telemetry.report events.jsonl
+        python -m spark_languagedetector_tpu_torch.telemetry.compare base.jsonl new.jsonl
+        python -m spark_languagedetector_tpu_torch.telemetry.stitch a.jsonl b.jsonl [-o out.json]
 """
 
 from __future__ import annotations

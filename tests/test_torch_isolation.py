@@ -25,10 +25,18 @@
   fleet swap and rollback, the collector's scrape) and a model zoo of
   tenants saved on disk behind the HTTP server (an eviction, a cold
   reload).
+* A seventh, with ``jax`` unimportable, writes a capture from a traced,
+  cost-gauged transform and a segment transform, runs the four CLIs on it
+  as ``__main__`` (``telemetry.report``, ``telemetry.compare``,
+  ``telemetry.stitch``, ``exec.tune``), loads the tuned profile into a
+  runner, and fronts a fleet with ``RouterServer(slo=)``.
 * An AST scan finds no import of either anywhere in the port, ``segment/``,
-  ``serve/router.py``, ``serve/fleet.py``, ``serve/quarantine.py`` and
-  ``zoo/`` included, nor in ``chip_smoke.py``, and no ``importlib`` in the
-  port's pipeline loader, which looks stage classes up in a fixed table.
+  ``serve/router.py``, ``serve/fleet.py``, ``serve/quarantine.py``,
+  ``zoo/``, the telemetry read side (``report``, ``compare``, ``stitch``,
+  ``slo``), ``gauges``, ``cost``, ``utils/profiling.py`` and
+  ``exec/tune.py`` included, nor in ``chip_smoke.py``, and no
+  ``importlib`` in the port's pipeline loader, which looks stage classes up
+  in a fixed table.
 * With no device given and no CUDA card, the entry points raise, the
   serving ones (``ModelRegistry.load``, ``python -m
   spark_languagedetector_tpu_torch.serve.server``, ``ServeFleet.from_path``
@@ -373,6 +381,78 @@ def test_fleet_and_zoo_run_with_jax_unimportable():
     assert res.stdout.strip().endswith("isolated")
 
 
+def test_telemetry_clis_and_tuner_run_with_jax_unimportable(tmp_path):
+    script = textwrap.dedent(
+        f"""
+        import json, os, runpy, sys
+        for name in ("jax", "jaxlib", "spark_languagedetector_tpu"):
+            sys.modules[name] = None  # any import of it raises ImportError
+        from spark_languagedetector_tpu_torch import LanguageDetector, Table
+        from spark_languagedetector_tpu_torch.telemetry import REGISTRY
+        from spark_languagedetector_tpu_torch.telemetry.export import JsonlSink
+        from spark_languagedetector_tpu_torch.telemetry.gauges import sample_device_gauges
+        from spark_languagedetector_tpu_torch.telemetry.slo import SloEvaluator
+        from spark_languagedetector_tpu_torch.utils.debug import nan_checks
+        from spark_languagedetector_tpu_torch.utils.profiling import trace
+        tmp = {str(tmp_path)!r}
+        table = Table({{"lang": ["en", "de"] * 3,
+                       "fulltext": ["the cat sat", "der hund lief", "a dog barks",
+                                    "die katze schläft", "the end is near",
+                                    "das ende ist nah"]}})
+        cap = os.path.join(tmp, "cap.jsonl")
+        sink = JsonlSink(cap)
+        REGISTRY.add_sink(sink)
+        model = LanguageDetector(["en", "de"], [1, 2, 3], 50, device="cpu").fit(table)
+        with trace(os.path.join(tmp, "trace"), label="transform"), nan_checks():
+            out = model.transform(Table({{"fulltext": ["the dog " * k for k in range(1, 90)]}}))
+        assert set(out.column("lang").tolist()) == {{"en"}}
+        model.copy({{"resultMode": "segment"}}).transform(Table({{"fulltext": ["der hund"]}}))
+        model.runner._cost_thread.join()
+        assert sample_device_gauges() == {{}}
+        REGISTRY.flush()
+        sink.close()
+
+        def cli(module, *argv):
+            sys.argv = [module, *argv]
+            try:
+                runpy.run_module(module, run_name="__main__")
+            except SystemExit as e:
+                return e.code
+            return 0
+
+        pkg = "spark_languagedetector_tpu_torch"
+        assert cli(pkg + ".telemetry.report", cap) == 0
+        assert cli(pkg + ".telemetry.compare", cap, cap) == 0
+        assert cli(pkg + ".telemetry.stitch", cap, "-o", os.path.join(tmp, "s.json")) == 0
+        prof = os.path.join(tmp, "profile.json")
+        assert cli(pkg + ".exec.tune", cap, "-o", prof) == 0
+        os.environ["LANGDETECT_TUNING_PROFILE"] = prof
+        from spark_languagedetector_tpu_torch.exec import config
+        config.reload_profile()
+        tuned = model.copy()  # a copy builds its own runner
+        assert tuned.runner.length_buckets == tuple(json.load(open(prof))["tuned"][
+            "length_buckets"])
+        from spark_languagedetector_tpu_torch.serve import RouterServer, ServeClient, ServeFleet
+        fleet = ServeFleet([model] * 2, device="cpu", max_wait_ms=2).start(probe=False)
+        slo = SloEvaluator()
+        slo.ingest({{"counters": {{"fleet/requests": 10, "fleet/shed_requests": 0}}}}, now=0.0)
+        with RouterServer(fleet.router, fleet=fleet, port=0, slo=slo) as front:
+            assert ServeClient(*front.address).healthz()["slo"] == slo.status()
+        fleet.close()
+        bad = sorted(m for m, mod in sys.modules.items() if mod is not None
+                     and m.split(".")[0] in ("jax", "jaxlib", "spark_languagedetector_tpu"))
+        assert not bad, bad
+        print("isolated")
+        """
+    )
+    res = subprocess.run(
+        [sys.executable, "-c", script],
+        cwd=PORT_DIR.parent, capture_output=True, text=True, timeout=180,
+    )
+    assert res.returncode == 0, res.stderr[-4000:]
+    assert res.stdout.strip().endswith("isolated")
+
+
 def test_serving_entry_points_raise_without_a_card(tmp_path):
     """``ModelRegistry.load`` with no device, and the server's module entry
     point, need the card: with none visible they raise, never serve on the
@@ -455,7 +535,10 @@ def test_no_module_of_the_port_imports_jax():
     assert {"__init__.py", "residency.py", "zoo.py"} <= {
         p.name for p in (PORT_DIR / "zoo").glob("*.py")
     }
-    assert (PORT_DIR / "telemetry" / "aggregate.py").is_file()
+    assert {"aggregate.py", "report.py", "compare.py", "stitch.py", "slo.py", "gauges.py",
+            "cost.py"} <= {p.name for p in (PORT_DIR / "telemetry").glob("*.py")}
+    for rel in ("utils/profiling.py", "utils/debug.py", "exec/tune.py"):
+        assert (PORT_DIR / rel).is_file(), rel
     assert {"__init__.py", "microbatch.py", "refit.py"} <= {
         p.name for p in (PORT_DIR / "stream").glob("*.py")
     }
