@@ -232,6 +232,46 @@ Phases, one line or more each; any failure exits non-zero before the verdict:
    ``ValueError``; outside, it builds and scores. Printed, claiming nothing:
    the roofline shares, the memory gauges, the padded bytes before and after
    tuning, and the profiler's kernel times.
+22. coldstart — phase 4's model saved (parquet, f32 and the int16 codec) and
+   baked twice (``artifacts.bake_model``: f32, int16). One fresh process
+   (``chip_smoke.py --cold-load``) times its CUDA context, the pyarrow import
+   and a warm-up (a baked load and its prewarm: the kernel libraries loaded
+   and first launched) apart, then loads each model from parquet and from
+   its bake, in their parts: the load (parse or map), the membership build,
+   ``build_fused_tables``, the upload through pinned memory, the runner build
+   they make up, ``prewarm_lattice``, then a transform of phase 4's 6,004
+   docs whose labels are phase 4's and whose scores are the reference's bit
+   for bit (f32: phase 4's; int16: the codec's parquet model); the baked legs
+   count ``artifacts/baked_loads`` 1, the parquet ones 0. A torn copy of the
+   artifact is refused (``artifacts/load_errors`` 1) and served from
+   parquet. Two replica children on the card, one after the other, on an
+   empty kernel build cache: the first builds (``compile_cache/misses`` >= 1,
+   ``prewarm_mode`` ``full``), the second loads (``sentinel``, verified, no
+   miss); both answer phase 4's labels and scores, and their ``warmup_s`` is
+   printed. Phase 20's zoo traffic again with the tenants baked (no parquet
+   tree): every answer its tenant's direct runner bit for bit, every cold
+   load a baked one, ``zoo/cold_load_s`` beside phase 20's, the resident
+   bytes the resident tenants' device tables and the live CUDA bytes exactly.
+23. scale    — three ``ProcessReplica`` children on the card
+   (``ReplicaSupervisor``, the bake and the build cache of phase 2) behind
+   ``FleetRouter``: phase 18's no-fault traffic mix, one closed-loop window
+   of ``SCALE_WINDOW_S`` seconds each through the three processes, through
+   three in-process replicas (``ServeFleet``), and to one replica alone, in
+   process (as phase 18 measured it) and in its own process, the score cache
+   off, every answer bit for bit the direct runner; printed,
+   claiming nothing (one card shows no scaling): requests/s,
+   ``fleet/request_s`` p50/p99 and the card's busy share (``nvidia-smi``
+   utilization over all processes). A SIGKILLed child mid-traffic: failover,
+   the supervisor's restart on its pinned port, the breaker's re-admission,
+   every answer bit for bit, every shed explicit. An ``ElasticFleet`` moved by
+   ``Autoscaler.tick()`` only: a burst against a 32-row queue sheds, the next
+   tick takes the fleet from 1 to 2 replicas, silence brings it back to 1
+   under a ``scale/decision:error@3`` plan that skips exactly tick 3, no
+   response dropped. The children's ``fused_detect`` and ``fused_segment``
+   launches, as their wrappers counted them (the
+   ``langdetect_kernel_launches`` gauge of each child's terminal snapshot in
+   its JSONL capture), join the kernels line; a child that dispatched and
+   launched nothing fails the phase.
 
 Each phase prints its seconds. Phase 2 also builds the native packer
 (``native/*.cpp`` with g++) and fails if it cannot.
@@ -486,9 +526,11 @@ HOLD_CYCLES = 20_000_000  # about 10 ms of spinning at the H100's clocks
 # host (a 5 ms spin once let every copy finish before the next take), so
 # an early reuse lands before the copy.
 STAGING_SPIN_CYCLES = 40_000_000
-# Runs of a staging check until a take has waited on a copy. The stream
-# leg's four workers meet a pending copy only now and then (0 to 23 waits a
-# run on the card), and once three runs in a row met none.
+# Runs of a staging check until a take has waited on a copy. A run of
+# either leg has queued copies ahead of its takes unless something on the
+# dispatch path drains the stream per batch (a pageable copy does: one on
+# the exact-vocab path once left the stream leg 0 to 26 waits a run, and
+# six runs with none), so a run without a wait is a finding.
 STAGING_ATTEMPTS = 6
 STAGING_BATCH = 256  # rows per batch there: many batches of one size class per call
 LADDER_DOCS = 400  # documents of the ladder check (its host rung scores on the CPU)
@@ -3326,15 +3368,19 @@ def timed_dispatchers(fleet, busy: dict) -> None:
         b._smoke_timed = True
 
 
-def fleet_load(ServeClient, address, texts, actions) -> tuple[list, float, dict]:
+def fleet_load(ServeClient, address, texts, actions, sheds: list | None = None
+               ) -> tuple[list, float, dict]:
     """FLEET_CLIENTS threads, FLEET_ROUNDS requests each of FLEET_DOCS
     texts to the router at ``address``, the kind cycling /detect, /score,
     /detect?mode=segment by (client + round) mod 3; ``actions[(client,
     round)]`` runs first (it may send requests of its own and returns them).
     Returns (client, kind, texts, answer, meta) in each client's order, the
     wall seconds and each action's milliseconds; any error fails the
-    phase."""
+    phase, except, when a ``sheds`` list is given, an explicit shed (503
+    with Retry-After), which is appended there as (client, kind, texts)."""
     import threading
+
+    from spark_languagedetector_tpu_torch.serve import ServeHTTPError
 
     records, errors, action_ms = [], [], {}
     lock = threading.Lock()
@@ -3343,7 +3389,14 @@ def fleet_load(ServeClient, address, texts, actions) -> tuple[list, float, dict]
     def send(client, c, kind, sub):
         call = {"detect": client.detect, "score": client.score,
                 "segment": client.segment}[kind]
-        answer, meta = call(sub)
+        try:
+            answer, meta = call(sub)
+        except ServeHTTPError as e:
+            if sheds is None or not (e.status == 503 and e.shed and e.retry_after_s > 0):
+                raise
+            with lock:
+                sheds.append((c, kind, sub))
+            return None
         with lock:
             records.append((c, kind, sub, answer, meta))
         return meta
@@ -3747,9 +3800,11 @@ def zoo_tenant_models(case5: FitCase, n: int):
     return det, models
 
 
-def phase_zoo(torch, dev, case5: FitCase, texts5, smi_line) -> dict:
+def phase_zoo(torch, dev, case5: FitCase, texts5, smi_line):
     """The model zoo at the config-5 spec (phase 20 of the module
-    docstring). Returns the launches."""
+    docstring). Returns the launches, the tenants' models, their direct
+    runners' answers on the request pool and the ``zoo/cold_load_s``
+    histogram (phase 22 reruns the traffic with the tenants baked)."""
     import threading
 
     from spark_languagedetector_tpu_torch import Table
@@ -3932,7 +3987,8 @@ def phase_zoo(torch, dev, case5: FitCase, texts5, smi_line) -> dict:
         fail("zoo: zoo/resident_bytes is not the resident tenants' live table bytes")
     if abs(live2 - live0) > 0:
         fail(f"zoo: {live2 - live0} B of CUDA tensors outlived zoo.close()")
-    return launches
+    return launches, {"models": {t: by_name[t] for t in tenants}, "refs": refs, "cold": cold,
+                      "budget": 3 * table}
 
 
 # ------------------------------------------------------------ observe ------
@@ -4320,6 +4376,737 @@ def phase_observe(torch, dev, model5, texts5, ids5, case3: FitCase, case5: FitCa
     return total
 
 
+# ------------------------------------------------------------ coldstart ----
+COLD_PARTS = ("load", "membership", "fused_tables", "upload", "runner", "prewarm", "transform")
+SCALE_BURST, SCALE_BURST_DOCS = 16, 16  # concurrent bulk requests against a 32-row queue
+# Phase 23's three fleet forms serve with the score cache off, so a
+# window may send a document twice and still reach the runner.
+SCALE_CHILD_ENV = {"LANGDETECT_SERVE_MAX_WAIT_MS": "4", "LANGDETECT_SERVE_MAX_ROWS": "256",
+                   "LANGDETECT_SERVE_QUEUE_ROWS": "1024", "LANGDETECT_CACHE_ENABLE": "0"}
+SCALE_WINDOW_S = 3.0  # each fleet form's closed-loop window
+
+
+def cold_load_child(spec_path: str) -> None:
+    """``chip_smoke.py --cold-load SPEC``: phase 22's cold loads in this fresh
+    process, each timed in its parts and followed by a transform of phase
+    4's documents, compared with the parent's answers. The CUDA context, the
+    pyarrow import and a warm-up (a baked load and its prewarm: the kernel
+    libraries loaded and first launched) are timed apart first, so that
+    every leg finds the process in the same state. Prints one JSON object."""
+    sys.path.insert(0, str(ROOT))
+    import torch
+
+    from spark_languagedetector_tpu_torch import LanguageDetectorModel, Table
+    from spark_languagedetector_tpu_torch.api import runner as runner_mod
+    from spark_languagedetector_tpu_torch.artifacts import maybe_load_baked, prewarm_lattice
+    from spark_languagedetector_tpu_torch.models.profile import GramProfile
+    from spark_languagedetector_tpu_torch.ops import score_fused as SF
+    from spark_languagedetector_tpu_torch.telemetry import REGISTRY
+
+    spec = json.loads(Path(spec_path).read_text())
+    dev = torch.device(spec["device"])
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        fail("cold-load child: no CUDA card")
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+    texts = json.loads(Path(spec["texts"]).read_text())
+    byte_docs = [t.encode() for t in texts]
+    parts: dict[str, float] = {}
+
+    def timed(name, fn, sync=False):
+        def wrapper(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                if sync:
+                    sync_fn()
+                parts[name] = parts.get(name, 0.0) + time.perf_counter() - t0
+        return wrapper
+
+    sync_fn = sync
+    t0 = time.perf_counter()
+    torch.zeros(1, device=dev)
+    sync()
+    out = {"cuda_init_s": time.perf_counter() - t0, "legs": []}
+    # pyarrow's import apart from the first parquet parse (a mapped load
+    # needs no pyarrow at all).
+    t0 = time.perf_counter()
+    import pyarrow.parquet  # noqa: F401
+
+    out["pyarrow_import_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    warm = maybe_load_baked(spec["warmup"]["path"], spec["warmup"]["artifact"], device=str(dev))
+    prewarm_lattice(warm.runner)
+    warm.release_runner()
+    del warm
+    sync()
+    out["warmup_s"] = time.perf_counter() - t0
+    out["warmup_launches"] = SF.FUSED_DETECT.launches
+    GramProfile.device_membership = timed("membership", GramProfile.device_membership)
+    SF.build_fused_tables = timed("fused_tables", SF.build_fused_tables)
+    runner_mod.upload = timed("upload", runner_mod.upload, sync=True)
+    if dev.type == "cpu":  # a CPU rehearsal counts the plain version's calls as launches
+        plain = SF.fused_plain
+
+        def counted(*a, **k):
+            SF.FUSED_DETECT.launches += 1
+            return plain(*a, **k)
+
+        SF.fused_plain = counted
+    for leg in spec["legs"]:
+        parts.clear()
+        SF.FUSED_DETECT.launches = 0
+        baked0 = REGISTRY.counters.get("artifacts/baked_loads", 0)
+        t0 = time.perf_counter()
+        if leg["artifact"]:
+            model = maybe_load_baked(leg["path"], leg["artifact"], device=str(dev))
+            if model is None:
+                fail(f"cold-load child: {leg['artifact']} did not load as a bake")
+        else:
+            model = LanguageDetectorModel.load(leg["path"], device=str(dev))
+        parts["load"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        runner = model.runner
+        sync()
+        parts["runner"] = time.perf_counter() - t0
+        parts["prewarm"] = prewarm_lattice(runner)["seconds"]
+        t0 = time.perf_counter()
+        labels = model.transform(Table({"fulltext": texts})).column("lang").tolist()
+        scores = runner.score(byte_docs)
+        sync()
+        parts["transform"] = time.perf_counter() - t0
+        idx = {name: i for i, name in enumerate(model.profile.languages)}
+        ids = np.asarray([idx[name] for name in labels])
+        out["legs"].append({
+            "name": leg["name"], "baked": bool(leg["artifact"]),
+            **{p: parts.get(p, 0.0) for p in COLD_PARTS},
+            "baked_loads": REGISTRY.counters.get("artifacts/baked_loads", 0) - baked0,
+            "strategy": runner.strategy, "launches": SF.FUSED_DETECT.launches,
+            "scores_equal": bool(np.array_equal(scores, np.load(leg["ref_scores"]))),
+            "labels_equal": bool(np.array_equal(ids, np.load(leg["ref_ids"]))),
+        })
+        del model, runner
+    print(json.dumps(out))
+
+
+def run_cold_loads(tmp, dev, name: str, legs: list, warmup: dict) -> dict:
+    """Run ``legs`` in one fresh ``--cold-load`` process on ``dev`` after
+    ``warmup`` (a leg's path and artifact); its result and wall seconds
+    (interpreter start and imports included)."""
+    spec = Path(tmp) / f"{name}.json"
+    spec.write_text(json.dumps({"texts": f"{tmp}/texts.json", "legs": legs,
+                                "warmup": warmup, "device": dev.type}))
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "--cold-load", str(spec)],
+                         capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if res.returncode != 0:
+        fail(f"coldstart: the {name} process failed: {res.stderr[-3000:]}")
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    out["wall_s"] = wall
+    return out
+
+
+def capture_launches(paths) -> dict[str, int]:
+    """Kernel launches of replica children as their kernels' wrappers
+    counted them: each child process ends its ``--metrics-jsonl`` capture
+    with a terminal ``telemetry.snapshot`` whose gauge
+    ``langdetect_kernel_launches{kernel, stage}`` holds its launches before
+    READY (``prewarm``) and after (``serve``). A process killed by a signal
+    writes no snapshot and adds nothing. Fails if a capture holds no
+    terminal snapshot, or a process that dispatched requests launched no
+    kernel after READY."""
+    out: dict[str, int] = {}
+    for path in paths:
+        terminal = 0
+        for line in Path(path).read_text().splitlines():
+            e = json.loads(line) if line else {}
+            series = (e.get("gauges") or {}).get("langdetect_kernel_launches")
+            if e.get("event") != "telemetry.snapshot" or not series:
+                continue
+            terminal += 1
+            served = 0
+            for key, n in series.items():
+                labels = dict(kv.split("=", 1) for kv in key.split(","))
+                out[labels["kernel"]] = out.get(labels["kernel"], 0) + int(n)
+                served += int(n) if labels["stage"] == "serve" else 0
+            dispatches = (e.get("counters") or {}).get("serve/dispatches", 0)
+            if dispatches and not served:
+                fail(f"a replica child made {dispatches} dispatches and no kernel launch "
+                     f"({Path(path).name})")
+        if not terminal:
+            fail(f"a replica child's capture holds no terminal snapshot ({Path(path).name})")
+    return out
+
+
+def spawn_child(ProcessReplica, dev, name, path, artifact, cache, tmp, **kw):
+    """One replica child on ``dev``'s type (the card, pinned by
+    CUDA_VISIBLE_DEVICES) with a JSONL capture; its READY line read."""
+    rep = ProcessReplica(name, path, device=dev.type, compile_cache_dir=cache, artifact=artifact,
+                         metrics_jsonl=f"{tmp}/{name}.jsonl", env={"PYTHONPATH": str(ROOT)},
+                         spawn_timeout_s=300.0, **kw)
+    return rep.spawn()
+
+
+def phase_coldstart(torch, dev, model5, texts5, ids5, zoo_state, tmp, smi_line):
+    """The cold-start plane at config 5 (phase 22 of the module docstring).
+    Returns the launches, the saved model directories and their bakes."""
+    import os
+    import shutil
+    import threading
+
+    from spark_languagedetector_tpu_torch import LanguageDetectorModel
+    from spark_languagedetector_tpu_torch.artifacts import artifact_path_for, bake_model
+    from spark_languagedetector_tpu_torch.artifacts.bake import BLOCKS_NAME
+    from spark_languagedetector_tpu_torch.scale import ProcessReplica
+    from spark_languagedetector_tpu_torch.serve import ModelRegistry, ServeClient, ServingServer
+    from spark_languagedetector_tpu_torch.telemetry import REGISTRY
+    from spark_languagedetector_tpu_torch.zoo import ModelZoo
+
+    byte_docs = [t.encode() for t in texts5]
+    dirs = {"f32": f"{tmp}/c5", "int16": f"{tmp}/c5_q16"}
+    t0 = time.perf_counter()
+    model5.save(dirs["f32"])
+    model5.write().overwrite().quantized("int16").save(dirs["int16"])
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    arts = {"f32": bake_model(model5, artifact_path_for(dirs["f32"])),
+            "int16": bake_model(model5, artifact_path_for(dirs["int16"]), quantize="int16")}
+    bake_s = time.perf_counter() - t0
+    sizes = {k: Path(a, BLOCKS_NAME).stat().st_size for k, a in arts.items()}
+    say("coldstart", f"phase 4's model saved as parquet, f32 and int16 codec, in {save_s:.1f}s; "
+        f"baked in {bake_s:.2f}s ({sizes['f32'] / 1e6:.1f} MB and {sizes['int16'] / 1e6:.1f} MB "
+        "of blocks)")
+    q16 = LanguageDetectorModel.load(dirs["int16"], device=str(dev))
+    refs = {"f32": (model5.runner.score(byte_docs), np.asarray(ids5)),
+            "int16": (q16.runner.score(byte_docs), np.asarray(ids5))}
+    q16_ids = q16.runner.predict_ids(byte_docs)
+    agree = float(np.mean(q16_ids == np.asarray(ids5)))
+    say("coldstart", f"the int16 codec's labels agree with phase 4's on {agree:.5f} of "
+        f"{len(byte_docs)} docs (int16 class: 1.0)")
+    if agree < 1.0:
+        fail("coldstart: the int16 codec's labels differ from phase 4's")
+    q16.release_runner()
+    del q16
+    Path(tmp, "texts.json").write_text(json.dumps(list(texts5)))
+    for k, (s, i) in refs.items():
+        np.save(f"{tmp}/ref_{k}_scores.npy", s)
+        np.save(f"{tmp}/ref_{k}_ids.npy", i)
+
+    legs = [{"name": f"{'baked' if baked else 'parquet'} {k}", "path": dirs[k],
+             "artifact": arts[k] if baked else None,
+             "ref_scores": f"{tmp}/ref_{k}_scores.npy", "ref_ids": f"{tmp}/ref_{k}_ids.npy"}
+            for k in ("f32", "int16") for baked in (False, True)]
+    out = run_cold_loads(tmp, dev, "cold", legs, {"path": dirs["int16"], "artifact": arts["int16"]})
+    child_launches = out["warmup_launches"]
+    say("coldstart", f"fresh process: {out['wall_s']:.2f}s wall, CUDA context "
+        f"{out['cuda_init_s'] * 1e3:.0f} ms, pyarrow import {out['pyarrow_import_s'] * 1e3:.0f} "
+        f"ms, warm-up (baked int16 load and prewarm: the kernels loaded and first launched, "
+        f"{out['warmup_launches']} fused_detect launches) {out['warmup_s'] * 1e3:.0f} ms before "
+        f"the legs ({smi_line})")
+    for leg in out["legs"]:
+        child_launches += leg["launches"]
+        say("coldstart", f"  {leg['name']}: " + ", ".join(
+            f"{p} {leg[p] * 1e3:.1f} ms" for p in COLD_PARTS)
+            + f" (runner = membership + fused tables + upload + the rest); "
+            f"artifacts/baked_loads +{leg['baked_loads']}, fused_detect launches "
+            f"{leg['launches']}")
+        if not (leg["scores_equal"] and leg["labels_equal"]):
+            fail(f"coldstart: {leg['name']}: the transform's scores or labels differ from "
+                 "the reference bit for bit")
+        if leg["strategy"] != "fused" or leg["launches"] <= 0:
+            fail(f"coldstart: {leg['name']} did not score through fused_detect")
+        if leg["baked_loads"] != leg["baked"]:
+            fail(f"coldstart: {leg['name']} counted {leg['baked_loads']} baked loads")
+    say("coldstart", "every cold load's transform of phase 4's 6,004 docs gives phase 4's "
+        "labels and the reference scores bit for bit (f32: phase 4's; int16: the codec's "
+        "parquet model in this process)")
+
+    # A torn copy of the artifact: refused, counted, served from parquet.
+    torn = f"{tmp}/torn"
+    shutil.copytree(dirs["f32"], torn)
+    shutil.copytree(arts["f32"], artifact_path_for(torn))
+    blocks = artifact_path_for(torn) / BLOCKS_NAME
+    with open(blocks, "r+b") as fh:
+        fh.truncate(blocks.stat().st_size // 2)
+    REGISTRY.reset()
+    reg = ModelRegistry(device=str(dev))
+    reg.load(torn)
+    counters = dict(REGISTRY.counters)
+    same = np.array_equal(reg.peek().runner.score(byte_docs), refs["f32"][0])
+    reg.close()
+    say("coldstart", f"torn artifact: artifacts/load_errors {counters.get('artifacts/load_errors', 0)}"
+        f", artifacts/baked_loads {counters.get('artifacts/baked_loads', 0)}; served from "
+        f"parquet, scores bit for bit phase 4's: {same}")
+    if counters.get("artifacts/load_errors", 0) != 1 or counters.get("artifacts/baked_loads", 0):
+        fail("coldstart: a torn artifact was not refused exactly once")
+    if not same:
+        fail("coldstart: the parquet load behind a torn artifact scores differently")
+
+    # Two children, one after the other, on an empty build cache.
+    cache = f"{tmp}/kernel_cache"
+    os.makedirs(cache)
+    platform = "gpu" if dev.type == "cuda" else dev.type
+    children = []
+    for i, want_mode in enumerate(("full", "sentinel")):
+        rep = spawn_child(ProcessReplica, dev, f"cold{i}", dirs["f32"], arts["f32"], cache, tmp)
+        try:
+            client = ServeClient(*rep.address)
+            labels, meta = client.detect(texts5[:64])
+            scores, _ = client.score(texts5[64:128])
+            counters = client.telemetryz()["counters"]
+        finally:
+            rep.stop()
+        names = model5.profile.languages
+        if (labels != [names[j] for j in ids5[:64]]
+                or not np.array_equal(scores, refs["f32"][0][64:128])):
+            fail(f"coldstart: child cold{i} answered differently from phase 4")
+        children.append((rep, counters))
+        say("coldstart", f"child cold{i}: READY in {rep.last_spawn_ready_s:.2f}s, warmup_s "
+            f"{rep.last_warmup_s:.3f} (load + prewarm), prewarm_mode {rep.last_prewarm_mode}, "
+            f"compile_cache/misses {counters.get('compile_cache/misses', 0)}, hits "
+            f"{counters.get('compile_cache/hits', 0)}, platform {rep.last_ready['platform']}")
+        if rep.last_prewarm_mode != want_mode or rep.last_ready["platform"] != platform:
+            fail(f"coldstart: child cold{i} prewarmed {rep.last_prewarm_mode!r} on "
+                 f"{rep.last_ready['platform']!r}, expected {want_mode!r} on {platform!r}")
+    # Off the card a runner launches no kernel, so there is nothing to build.
+    if dev.type == "cuda" and children[0][1].get("compile_cache/misses", 0) < 1:
+        fail("coldstart: the first child on an empty cache built nothing")
+    if children[1][1].get("compile_cache/misses", 0) != 0:
+        fail("coldstart: the second child built a kernel the cache held")
+    built = sorted(p.name for p in Path(cache).glob("lib*.so"))
+    say("coldstart", f"the cache holds {built} and a manifest; warmup_s cold "
+        f"{children[0][0].last_warmup_s:.3f} s, warm {children[1][0].last_warmup_s:.3f} s "
+        f"({smi_line})")
+    cold_child = capture_launches([f"{tmp}/cold{i}.jsonl" for i in range(2)])
+    if cold_child["fused_detect"] <= 0:
+        fail(f"coldstart: a child served with no launch: {cold_child}")
+
+    # Phase 20's zoo traffic, the tenants baked (no parquet tree at all).
+    zdir = f"{tmp}/zoo"
+    t0 = time.perf_counter()
+    for name, m in zoo_state["models"].items():
+        bake_model(m, artifact_path_for(f"{zdir}/{name}"))
+    say("coldstart", f"{len(zoo_state['models'])} zoo tenants baked in "
+        f"{time.perf_counter() - t0:.1f}s")
+    tenants = sorted(zoo_state["models"])
+    pool = texts5[4000:4400]
+    live0 = quiesce(torch)
+    zoo = ModelZoo(device=str(dev), resident_bytes=zoo_state["budget"], max_wait_ms=4,
+                   max_rows=256, max_queue_rows=1024)
+    for name in tenants:
+        zoo.add_tenant(name, path=f"{zdir}/{name}")
+    REGISTRY.reset()
+    reset_launches()
+    records, errors, lock = [], [], threading.Lock()
+    barrier = threading.Barrier(ZOO_CLIENTS)
+    with ServingServer(zoo, port=0) as server:
+        def work(ci):
+            crng = np.random.default_rng(900 + ci)
+            client = ServeClient(*server.address)
+            barrier.wait(timeout=60)
+            for r in range(ZOO_ROUNDS):
+                tenant = tenants[int(crng.integers(len(tenants)))]
+                lo = int(crng.integers(0, len(pool) - ZOO_DOCS))
+                kind = ("score", "detect")[(ci + r) % 2]
+                try:
+                    out, meta = getattr(client, kind)(pool[lo:lo + ZOO_DOCS], tenant=tenant)
+                except Exception as e:
+                    errors.append(f"client {ci} round {r} [{tenant}]: {e!r}")
+                    return
+                with lock:
+                    records.append((tenant, kind, lo, out, meta))
+
+        threads = [threading.Thread(target=work, args=(ci,)) for ci in range(ZOO_CLIENTS)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        wall = time.perf_counter() - t0
+        zoo_launches = read_launches()["fused_detect"]
+        counters = dict(REGISTRY.counters)
+        snap = REGISTRY.snapshot()
+        cold = snap["histograms"].get("zoo/cold_load_s", {})
+        gauge = snap["gauges"]["langdetect_zoo_resident_bytes"][""]
+        resident = zoo.resident()
+        live1 = quiesce(torch)
+    zoo.close()
+    live2 = quiesce(torch)
+    if errors:
+        fail(f"coldstart zoo: {len(errors)} requests not answered: {errors[:3]}")
+    names = zoo_state["models"][tenants[0]].profile.languages
+    for tenant, kind, lo, out, meta in records:
+        want_s, want_l = zoo_state["refs"][tenant, "v1"]
+        if meta.get("tenant") != tenant:
+            fail(f"coldstart zoo: a request to {tenant} was answered by {meta.get('tenant')}")
+        if kind == "score" and not np.array_equal(out, want_s[lo:lo + ZOO_DOCS]):
+            fail(f"coldstart zoo: {tenant}'s baked scores differ from its direct runner")
+        if kind == "detect" and out != [names[i] for i in want_l[lo:lo + ZOO_DOCS]]:
+            fail(f"coldstart zoo: {tenant}'s baked labels differ from its direct runner")
+    old = zoo_state["cold"]
+    loads = counters.get("zoo/cold_loads", 0)
+    say("coldstart", f"zoo, tenants baked: {len(records)} requests in {wall:.2f}s "
+        f"({len(records) / wall:.1f} requests/s); zoo/cold_load_s p50 "
+        f"{cold.get('p50', 0) * 1e3:.1f} ms, p99 {cold.get('p99', 0) * 1e3:.1f} ms over "
+        f"{cold.get('count', 0)} loads (phase 20, from the fitted models: p50 "
+        f"{old.get('p50', 0) * 1e3:.1f} ms, p99 {old.get('p99', 0) * 1e3:.1f} ms over "
+        f"{old.get('count', 0)}); artifacts/baked_loads {counters.get('artifacts/baked_loads', 0)}"
+        f" of {loads} cold loads; every answer its tenant's direct runner bit for bit "
+        f"({smi_line})")
+    if loads < 1 or counters.get("artifacts/baked_loads", 0) != loads:
+        fail("coldstart zoo: a cold load did not map its tenant's bake")
+    say("coldstart", f"zoo/resident_bytes {gauge:.0f} = the resident tenants' device tables "
+        f"{sum(resident.values())} = live CUDA bytes above the zoo's start {live1 - live0}; "
+        f"after close {live2 - live0}")
+    if gauge != sum(resident.values()) or live1 - live0 != gauge or live2 != live0:
+        fail("coldstart zoo: resident bytes are not the resident tenants' device tables")
+    launches = {"fused_detect": child_launches + cold_child["fused_detect"] + zoo_launches,
+                "fused_segment": cold_child["fused_segment"]}
+    say("coldstart", f"launches: cold-load processes {child_launches} fused_detect, replica "
+        f"children {cold_child}, zoo {zoo_launches} fused_detect")
+    return launches, dirs, arts
+
+
+def window_load(ServeClient, address, texts, seconds: float) -> tuple[list, float]:
+    """FLEET_CLIENTS closed-loop clients against ``address`` for ``seconds``:
+    each sends FLEET_DOCS texts at a time, the kind cycling as in
+    :func:`fleet_load`, and starts no request after the window. Returns
+    (client, kind, texts, answer, meta) records and the wall seconds to the
+    last answer. Any error fails the phase."""
+    import threading
+
+    records, errors, lock = [], [], threading.Lock()
+    barrier = threading.Barrier(FLEET_CLIENTS + 1)
+    span = len(texts) - FLEET_DOCS
+
+    def work(c):
+        client = ServeClient(*address)
+        barrier.wait(timeout=60)
+        end, r = time.perf_counter() + seconds, 0
+        while time.perf_counter() < end:
+            start = ((r * FLEET_CLIENTS + c) * FLEET_DOCS) % span
+            sub, kind = texts[start:start + FLEET_DOCS], FLEET_KINDS[(c + r) % 3]
+            try:
+                answer, meta = getattr(client, kind)(sub)
+            except Exception as e:
+                errors.append(f"client {c} request {r}: {e!r}")
+                return
+            with lock:
+                records.append((c, kind, sub, answer, meta))
+            r += 1
+
+    threads = [threading.Thread(target=work, args=(c,)) for c in range(FLEET_CLIENTS)]
+    for t in threads:
+        t.start()
+    barrier.wait(timeout=60)
+    t0 = time.perf_counter()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    if errors:
+        fail(f"scale: {len(errors)} clients stopped on an unanswered request: {errors[:3]}")
+    return records, wall
+
+
+def smi_busy(run) -> str:
+    """``run()`` while a thread samples ``nvidia-smi``'s utilization.gpu (the
+    share of time a kernel of any process ran on the card); the mean of the
+    samples, or "not measured"."""
+    import threading
+
+    samples, stop = [], threading.Event()
+
+    def sample():
+        while not stop.is_set():
+            try:
+                res = subprocess.run(["nvidia-smi", "--query-gpu=utilization.gpu",
+                                      "--format=csv,noheader,nounits"],
+                                     capture_output=True, text=True, timeout=30)
+                samples.append(float(res.stdout.strip().splitlines()[0]))
+            except (OSError, ValueError, IndexError, subprocess.TimeoutExpired):
+                return
+            stop.wait(0.05)
+
+    thread = threading.Thread(target=sample, daemon=True)
+    thread.start()
+    try:
+        run()
+    finally:
+        stop.set()
+        thread.join(timeout=30)
+    if not samples:
+        return "card busy not measured (nvidia-smi gave no utilization)"
+    return f"card busy {np.mean(samples):.1f}% (nvidia-smi utilization.gpu, {len(samples)} samples)"
+
+
+def phase_scale(torch, dev, model5, texts5, dirs, arts, tmp, smi_line) -> dict:
+    """Process replicas, the supervisor, the autoscaler and the elastic fleet
+    on the one card (phase 23 of the module docstring). Returns the
+    launches, the children's included."""
+    import threading
+
+    from spark_languagedetector_tpu_torch.ops import _kernels
+    from spark_languagedetector_tpu_torch.resilience import faults
+    from spark_languagedetector_tpu_torch.resilience.faults import FaultPlan
+    from spark_languagedetector_tpu_torch.scale import Autoscaler, ElasticFleet, ReplicaSupervisor
+    from spark_languagedetector_tpu_torch.serve import (
+        FleetRouter, QuarantineTable, RouterServer, ServeClient, ServeFleet, ServeHTTPError)
+    from spark_languagedetector_tpu_torch.telemetry import REGISTRY
+    from spark_languagedetector_tpu_torch.telemetry.slo import SloEvaluator
+
+    cache = str(_kernels.BUILD_DIR)  # phase 2 built every kernel there: no child builds
+    env = {"PYTHONPATH": str(ROOT), **SCALE_CHILD_ENV}
+    router_kw = dict(probe_interval_ms=40, breaker_threshold=2, breaker_cooldown_s=0.3)
+    refs = {"v1": model5}
+    reset_launches()
+    platform = "gpu" if dev.type == "cuda" else dev.type
+    sup = ReplicaSupervisor(dirs["f32"], device=dev.type, fleet_name="smoke-scale",
+                            pidfile_dir=f"{tmp}/pids", compile_cache_dir=cache,
+                            artifact=arts["f32"], child_env=env, metrics_dir=f"{tmp}/metrics",
+                            spawn_timeout_s=300.0)
+    reps, errors = {}, []
+
+    def spawn(name):
+        try:
+            reps[name] = sup.spawn(name)
+        except Exception as e:
+            errors.append(f"{name}: {e!r}")
+
+    elastic = {}
+
+    def start_elastic():
+        # The elastic fleet's founder starts with the three children; it
+        # idles until the elastic leg below.
+        try:
+            elastic["fleet"] = ElasticFleet(
+                dirs["f32"], replicas=1, device=dev.type, fleet_name="smoke-elastic",
+                slo=SloEvaluator(short_window_s=0.25, long_window_s=0.25),
+                pidfile_dir=f"{tmp}/epids", compile_cache_dir=cache, artifact=arts["f32"],
+                child_env={"PYTHONPATH": str(ROOT), "LANGDETECT_SERVE_QUEUE_ROWS": "32",
+                           "LANGDETECT_SERVE_MAX_WAIT_MS": "4"},
+                metrics_dir=f"{tmp}/emetrics", spawn_timeout_s=300.0,
+                router_kw=dict(router_kw, dispatch_attempts=1,
+                               quarantine=QuarantineTable(0, name="elastic-smoke")))
+        except Exception as e:
+            errors.append(f"elastic founder: {e!r}")
+
+    prober = inproc = iprober = None
+    try:
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=spawn, args=(f"r{i}",)) for i in range(3)]
+        threads.append(threading.Thread(target=start_elastic))
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        if errors:
+            fail(f"scale: a replica child did not start: {errors}")
+        say("scale", f"three replica children (and the elastic fleet's founder) on the card in "
+            f"{time.perf_counter() - t0:.2f}s: "
+            + ", ".join(f"{n} warmup_s {r.last_warmup_s:.3f} ({r.last_prewarm_mode}, "
+                        f"{r.last_ready['platform']})" for n, r in sorted(reps.items())))
+        if any(r.last_ready["platform"] != platform for r in reps.values()):
+            fail(f"scale: a child is not serving on {platform}")
+        router = FleetRouter([reps[f"r{i}"] for i in range(3)],
+                             quarantine=QuarantineTable(0, name="scale-smoke"), **router_kw)
+        router.start(probe=False)
+        prober = Prober(router)
+        # Phase 4's model, which dirs["f32"] holds, already warm: no load.
+        inproc = ServeFleet(
+            [model5] * 3, device=str(dev), max_wait_ms=4, max_rows=256,
+            max_queue_rows=1024, cache_enable=False,
+            router_kw=dict(router_kw, quarantine=QuarantineTable(0, name="scale-inproc")))
+        inproc.start(probe=False)
+        iprober = Prober(inproc.router)
+        results: dict[str, float] = {}
+        with RouterServer(router, port=0) as pfront, \
+                RouterServer(inproc.router, fleet=inproc, port=0) as ifront:
+            for address in (pfront.address, ifront.address):
+                for kind in FLEET_KINDS:
+                    getattr(ServeClient(*address), kind)(texts5[5900:5908])
+            # Each form serves phase 18's traffic mix for one window of
+            # SCALE_WINDOW_S seconds, the score cache off on every replica.
+            legs = [("process", pfront.address), ("in-process", ifront.address),
+                    ("single in-process", inproc.replica("r0").address),
+                    ("single process", reps["r0"].address)]
+            for leg, address in legs:
+                REGISTRY.reset()
+                got = {}
+                busy = smi_busy(lambda: got.update(res=window_load(
+                    ServeClient, address, texts5[:5900], SCALE_WINDOW_S)))
+                recs, wall = got["res"]
+                # A window repeats requests: every answer to one request
+                # must be the same, and one of them the direct runner's.
+                first = {}
+                for _, kind, sub, ans, meta in recs:
+                    key = (kind, tuple(sub), meta["version"])
+                    if key not in first:
+                        first[key] = (kind, sub, ans, meta)
+                    elif not (np.array_equal(ans, first[key][2]) if kind == "score"
+                              else ans == first[key][2]):
+                        fail(f"scale ({leg}): two answers to one {kind} request differ")
+                serve_check(f"scale ({leg})", list(first.values()), refs, exact=True)
+                hist = REGISTRY.snapshot()["histograms"].get("fleet/request_s")
+                lat = ("no router" if hist is None else
+                       f"fleet/request_s p50 {hist['p50'] * 1e3:.2f} ms, p99 "
+                       f"{hist['p99'] * 1e3:.2f} ms")
+                results[leg] = len(recs) / wall
+                say("scale", f"{leg}: {len(recs)} requests in {wall:.2f}s, "
+                    f"{len(recs) / wall:.1f} requests/s; {lat}; {busy}; every answer bit for "
+                    f"bit the direct runner ({smi_line})")
+            say("scale", f"requests/s, one {SCALE_WINDOW_S:.0f} s window each: " + ", ".join(
+                f"{leg} {v:.1f}" for leg, v in results.items())
+                + f"; three processes / one process "
+                f"{results['process'] / results['single process']:.2f}; one card shows no "
+                "scaling, and none is claimed")
+
+            # SIGKILL a child mid-traffic: failover, a restart on its pinned
+            # port, the breaker's re-admission.
+            port0 = reps["r0"].address[1]
+            restart = {}
+
+            def kill(send):
+                with prober.paused():
+                    reps["r0"].proc.kill()
+                    n = 0
+                    while REGISTRY.counters.get("fleet/failovers", 0) < 1:
+                        n += 1
+                        if n > 50:
+                            fail("scale: 50 requests after the SIGKILL and no failover")
+                        send("detect")
+                say("scale", f"r0 SIGKILLed: {n} request(s) until the first failover")
+
+            def revive(send):
+                wait_until("scale: an ejection",
+                           lambda: REGISTRY.counters.get("fleet/ejections", 0) >= 1)
+                t0 = time.perf_counter()
+                restart["events"] = sup.poll_once()
+                restart["s"] = time.perf_counter() - t0
+                wait_until("scale: three eligible replicas", lambda: len(router.eligible()) == 3)
+
+            REGISTRY.reset()
+            sheds = []
+            recs, wall, _ = fleet_load(
+                ServeClient, pfront.address, texts5[:5900],
+                {(0, FLEET_KILL_ROUND): ("kill", kill), (0, FLEET_REVIVE_ROUND): ("revive", revive)},
+                sheds=sheds)
+            counters = dict(REGISTRY.counters)
+            serve_check("scale kill", [(kind, sub, ans, meta) for _, kind, sub, ans, meta in recs],
+                        refs, exact=True)
+            say("scale", f"kill drill: {len(recs)} answered and {len(sheds)} shed explicitly in "
+                f"{wall:.2f}s; supervisor {restart.get('events')} in {restart.get('s', 0):.2f}s on "
+                f"port {reps['r0'].address[1]} (pinned {port0}); " + str({k: counters.get(k, 0) for k in (
+                    "fleet/failovers", "fleet/ejections", "fleet/readmissions")}))
+            if restart.get("events") != ["r0:restarted"] or reps["r0"].address[1] != port0:
+                fail("scale: the SIGKILLed child was not restarted on its pinned port; its "
+                     f"last lines: {reps['r0'].output_tail()[-4:]}")
+            if any(counters.get(k, 0) < 1 for k in ("fleet/failovers", "fleet/ejections",
+                                                     "fleet/readmissions")):
+                fail("scale: no failover, ejection or re-admission around the SIGKILL")
+            if len(recs) + len(sheds) < FLEET_CLIENTS * FLEET_ROUNDS:
+                fail("scale: a response was dropped in the kill drill")
+    except BaseException:
+        if "fleet" in elastic:
+            elastic["fleet"].close()
+        raise
+    finally:
+        for p in (prober, iprober):
+            if p is not None:
+                p.stop()
+        if inproc is not None:
+            inproc.close()
+        sup.close()
+    launches = capture_launches(sorted(Path(tmp, "metrics").glob("replica-*.jsonl")))
+    say("scale", f"the children's launches, as their kernels counted them: {launches} (the "
+        "SIGKILLed r0 process wrote no terminal snapshot: its launches are not in the count)")
+    if launches["fused_detect"] <= 0:
+        fail("scale: the replica children served with no fused_detect launch")
+
+    # The elastic fleet, moved by Autoscaler.tick() alone. Its collector and
+    # SLO read this leg's traffic only (the registry is reset); the SLO
+    # windows are short, so the burst's burn has cleared after the
+    # silence's first ticks.
+    REGISTRY.reset()
+    ef = elastic["fleet"]
+    ef.start(probe=False)
+    sc = Autoscaler(ef, scale_min=1, scale_max=2, up_ticks=1, down_ticks=2,
+                    pressure_wait_ms=50.0, idle_rows_per_s=1.0, interval_ms=60_000.0)
+    try:
+        with RouterServer(ef.router, port=0) as front:
+            timeline = [ef.target]
+            first = sc.tick()
+            outcomes, answered, lock = [], [], threading.Lock()
+            barrier = threading.Barrier(SCALE_BURST)
+
+            def burst(i):
+                sub = texts5[5000 + i * SCALE_BURST_DOCS:5000 + (i + 1) * SCALE_BURST_DOCS]
+                barrier.wait(timeout=60)
+                try:
+                    labels, meta = ServeClient(*front.address).detect(sub, priority="bulk")
+                    with lock:
+                        answered.append(("detect", sub, labels, meta))
+                    out = "ok"
+                except ServeHTTPError as e:
+                    out = "shed" if e.status == 503 and e.shed and e.retry_after_s > 0 else repr(e)
+                except Exception as e:
+                    out = repr(e)
+                with lock:
+                    outcomes.append(out)
+
+            threads = [threading.Thread(target=burst, args=(i,)) for i in range(SCALE_BURST)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            bad = [o for o in outcomes if o not in ("ok", "shed")]
+            if bad or len(outcomes) != SCALE_BURST or "shed" not in outcomes:
+                fail(f"scale elastic: the burst gave {outcomes}")
+            t0 = time.perf_counter()
+            up = sc.tick()
+            up_s = time.perf_counter() - t0
+            timeline.append(ef.target)
+            ef.router.probe_once()
+            for i in range(4):
+                labels, meta = ServeClient(*front.address).detect(texts5[5400 + 8 * i:5408 + 8 * i])
+                answered.append(("detect", texts5[5400 + 8 * i:5408 + 8 * i], labels, meta))
+            decisions = []
+            skips0 = REGISTRY.counters.get("scale/decision_skips", 0)
+            t0 = time.perf_counter()
+            with faults.plan_scope(FaultPlan.parse("scale/decision:error@3")):
+                while ef.target > 1 and len(decisions) < 400:
+                    decisions.append(sc.tick())
+            down_s = time.perf_counter() - t0
+            timeline.append(ef.target)
+            skips = REGISTRY.counters.get("scale/decision_skips", 0) - skips0
+            labels, meta = ServeClient(*front.address).detect(texts5[5500:5508])
+            answered.append(("detect", texts5[5500:5508], labels, meta))
+            serve_check("scale elastic", answered, refs, exact=True)
+            live = ef.live_count()
+    finally:
+        ef.close()
+    elaunch = capture_launches(sorted(Path(tmp, "emetrics").glob("replica-*.jsonl")))
+    say("scale", f"elastic: first tick {first!r}; a burst of {SCALE_BURST} x "
+        f"{SCALE_BURST_DOCS} docs against a 32-row queue: {outcomes.count('ok')} answered, "
+        f"{outcomes.count('shed')} shed with Retry-After; tick {up!r} in {up_s:.2f}s (the "
+        f"joiner's spawn); silence: {len(decisions)} ticks in {down_s:.2f}s, "
+        f"{decisions.count('skipped')} skipped (plan scale/decision:error@3), the last "
+        f"{decisions[-1] if decisions else None!r}; replicas {timeline}; every answer bit for "
+        f"bit; children's launches {elaunch} ({smi_line})")
+    if first != "hold" or up != "up" or timeline != [1, 2, 1] or live != 1:
+        fail(f"scale elastic: replicas {timeline} (ticks {first!r}, {up!r}), expected 1 -> 2 -> 1")
+    if decisions[2:3] != ["skipped"] or decisions.count("skipped") != 1 or skips != 1:
+        fail(f"scale elastic: the decision plan skipped {decisions.count('skipped')} ticks "
+             f"({skips} counted), expected exactly tick 3")
+    if elaunch["fused_detect"] <= 0:
+        fail("scale elastic: the children served with no fused_detect launch")
+    own = read_launches()
+    return {k: own[k] + launches[k] + elaunch[k] for k in ("fused_detect", "fused_segment")}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--quick", action="store_true",
@@ -4328,7 +5115,11 @@ def main() -> None:
                     help="another version's checkout, or its csrc/ directory: every kernel "
                     "whose source it holds (same C entry point) is built from it and timed "
                     "in turns with this checkout's; repeatable")
+    ap.add_argument("--cold-load", metavar="SPEC", help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.cold_load:  # phase 22's fresh process
+        cold_load_child(args.cold_load)
+        return
 
     if not (ROOT / "spark_languagedetector_tpu_torch" / "__init__.py").is_file():
         fail("the spark_languagedetector_tpu_torch package is not beside this script")
@@ -4410,11 +5201,19 @@ def main() -> None:
             storm_launches = phase_storm(torch, dev, fleet_dirs, main_docs, smi_line)
         del fleet_dirs
     with phase_clock("zoo"):
-        zoo_launches = phase_zoo(torch, dev, fit5_case, main_docs, smi_line)
+        zoo_launches, zoo_state = phase_zoo(torch, dev, fit5_case, main_docs, smi_line)
     with tempfile.TemporaryDirectory(prefix="observe_smoke_") as tmp, phase_clock("observe"):
         observe_launches = phase_observe(torch, dev, model, main_docs, main_ids, fit3_case,
                                          fit5_case, tmp, smi_line)
-    segment_entry["launches"] += fleet_launches["fused_segment"] + observe_launches["fused_segment"]
+    with tempfile.TemporaryDirectory(prefix="coldstart_smoke_") as tmp:
+        with phase_clock("coldstart"):
+            cold_launches, dirs, arts = phase_coldstart(torch, dev, model, main_docs, main_ids,
+                                                        zoo_state, tmp, smi_line)
+        del zoo_state
+        with phase_clock("scale"):
+            scale_launches = phase_scale(torch, dev, model, main_docs, dirs, arts, tmp, smi_line)
+    segment_entry["launches"] += (fleet_launches["fused_segment"] + observe_launches["fused_segment"]
+                                  + cold_launches["fused_segment"] + scale_launches["fused_segment"])
     for entry in hist_entries:
         entry["launches"] += observe_launches.get(entry["name"], 0)
     bad = [k for k in ("jax", "jaxlib", "spark_languagedetector_tpu") if k in sys.modules]
@@ -4429,7 +5228,8 @@ def main() -> None:
         "replaces": "spark_languagedetector_tpu/ops/score_fused.py:308",
         "launches": (launches + stream_launches + refit_launches
                      + fleet_launches["fused_detect"] + storm_launches["fused_detect"]
-                     + zoo_launches["fused_detect"] + observe_launches["fused_detect"]),
+                     + zoo_launches["fused_detect"] + observe_launches["fused_detect"]
+                     + cold_launches["fused_detect"] + scale_launches["fused_detect"]),
         "max_abs_err": max(kernel_err, c5_err),
         **times,
     }, segment_entry] + hist_entries}))

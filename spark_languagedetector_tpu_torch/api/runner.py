@@ -97,7 +97,7 @@ from ..exec.core import (
     rows_under_byte_budget,
     run_ordered,
 )
-from ..exec.staging import HostStaging, copy_to_host_async, host_numpy
+from ..exec.staging import HostStaging, copy_to_host_async, host_numpy, upload
 from ..ops import bucket as bucket_ops
 from ..ops import cuckoo as cuckoo_ops
 from ..ops import score as score_ops
@@ -151,6 +151,15 @@ SEGMENT_CELL = 256
 
 _U8, _I32 = np.uint8, np.int32
 _NO_POS = np.zeros(0, dtype=np.int64)
+
+
+def _host_array(x, dtype=None) -> np.ndarray:
+    """A membership operand as a host array: a numpy array (a baked
+    artifact's read-only mapping included) as it is, a tensor copied to the
+    host."""
+    if isinstance(x, np.ndarray):
+        return np.asarray(x, dtype=dtype)
+    return np.asarray(torch.as_tensor(x).cpu(), dtype=dtype)
 
 
 @dataclass(frozen=True)
@@ -280,8 +289,8 @@ class BatchRunner:
                 "quantization applies to the fused strategy only; got "
                 f"strategy={self.strategy!r}"
             )
-        w = np.asarray(torch.as_tensor(self.weights).cpu(), dtype=np.float32)
-        lut = None if self.lut is None else np.asarray(torch.as_tensor(self.lut).cpu())
+        w = _host_array(self.weights, np.float32)
+        lut = None if self.lut is None else _host_array(self.lut)
         if lut is not None and lut.size == 0:
             lut = None
         if lut is not None and self.cuckoo is not None:
@@ -400,12 +409,12 @@ class BatchRunner:
         wp, rhi = score_hist.pad_weights(w)
         dev = self.device
         return HistState(
-            weights_pad=torch.from_numpy(wp).to(dev, torch.float64),
+            weights_pad=upload(wp, dev).to(torch.float64),
             rhi=rhi,
-            bucket=None if table is None else torch.from_numpy(table.rows).to(dev),
+            bucket=None if table is None else upload(table.rows, dev),
             seed=0 if table is None else table.seed,
             kind="hashed" if table is None else table.kind,
-            lut=torch.from_numpy(lut).to(dev) if table is None else None,
+            lut=upload(lut, dev) if table is None else None,
         )
 
     def _build_pallas_state(self, w: np.ndarray, lut: np.ndarray | None) -> PallasState:
@@ -416,7 +425,7 @@ class BatchRunner:
         first rows (the exact id layout stacks lengths ascending, so the
         sub-spec's ids are the full spec's first rows)."""
         if self.strategy == "pallas":
-            table = torch.from_numpy(w).to(self.device)
+            table = upload(w, self.device)
             return PallasState(self.spec, *score_pallas.weight_views(table, self.spec), rest=())
         sub = tuple(n for n in self.spec.gram_lengths if n <= 2)
         rest = tuple(n for n in self.spec.gram_lengths if n > 2)
@@ -435,7 +444,7 @@ class BatchRunner:
             rows = lut[:V12]
         else:
             rows = np.arange(V12)
-        table = torch.from_numpy(w[rows]).to(self.device)
+        table = upload(w[rows], self.device)
         return PallasState(spec12, *score_pallas.weight_views(table, spec12), rest=rest)
 
     def _build_operands(self, w: np.ndarray, lut: np.ndarray | None) -> None:
@@ -448,9 +457,9 @@ class BatchRunner:
             ft = score_fused.build_fused_tables(w, lut, self.spec, self.quantization)
             self.layout = ft.layout
             self._table_bytes = ft.table_bytes
-            self.table = torch.from_numpy(ft.wq).to(dev)
-            self.scales = torch.from_numpy(ft.scales).to(dev)
-            self.table_lut = None if ft.lut is None else torch.from_numpy(ft.lut).to(dev)
+            self.table = upload(ft.wq, dev)
+            self.scales = upload(ft.scales, dev)
+            self.table_lut = None if ft.lut is None else upload(ft.lut, dev)
             return
         held = []
         if self.strategy in ("pallas", "hybrid"):
@@ -462,13 +471,13 @@ class BatchRunner:
                             self.hist_state.lut) if t is not None
             ]
         elif self.strategy in ("hybrid", "gather"):
-            self.table = torch.from_numpy(w).to(dev)
+            self.table = upload(w, dev)
             held.append(self.table)
             if self.cuckoo is not None:
-                self._cuckoo_entries = torch.from_numpy(self.cuckoo.entries()).to(dev)
+                self._cuckoo_entries = upload(self.cuckoo.entries(), dev)
                 held.append(self._cuckoo_entries)
             elif lut is not None:
-                self.table_lut = torch.from_numpy(lut).to(dev)
+                self.table_lut = upload(lut, dev)
                 held.append(self.table_lut)
         self._table_bytes = sum(t.numel() * t.element_size() for t in held)
 
@@ -597,12 +606,12 @@ class BatchRunner:
                 dev = self.device
                 table, lut, entries = self.table, self.table_lut, self._cuckoo_entries
                 if table is None or self.strategy == "fused":
-                    table = torch.from_numpy(self._host_weights).to(dev)
+                    table = upload(self._host_weights, dev)
                     lut = entries = None
                     if self.cuckoo is not None:
-                        entries = torch.from_numpy(self.cuckoo.entries()).to(dev)
+                        entries = upload(self.cuckoo.entries(), dev)
                     elif self._host_lut is not None:
-                        lut = torch.from_numpy(self._host_lut).to(dev)
+                        lut = upload(self._host_lut, dev)
                     self._table_bytes += sum(
                         t.numel() * t.element_size()
                         for t in (table, lut, entries) if t is not None
@@ -619,11 +628,11 @@ class BatchRunner:
             return ops
         with self._state_lock:
             if self._host_ops is None:
+                cpu = torch.device("cpu")
                 self._host_ops = (
-                    torch.from_numpy(self._host_weights),
-                    None if self._host_lut is None else torch.from_numpy(self._host_lut),
-                    None if self.cuckoo is None
-                    else torch.from_numpy(self.cuckoo.entries()),
+                    upload(self._host_weights, cpu),
+                    None if self._host_lut is None else upload(self._host_lut, cpu),
+                    None if self.cuckoo is None else upload(self.cuckoo.entries(), cpu),
                 )
             return self._host_ops
 
@@ -1162,7 +1171,7 @@ class BatchRunner:
                 return (result, None), _NO_POS
             pos = chunk_pos(sel)
             am = score_ops.argmax_language(result)
-            sub = result[torch.from_numpy(pos).to(result.device)] if pos.size else None
+            sub = result[upload(pos, result.device)] if pos.size else None
             return (am, sub), pos
 
         def fetch_all(tensors, handles=None):

@@ -3,8 +3,8 @@
 Port of ``spark_languagedetector_tpu.exec.config``. The table holds the
 knobs a module of the port reads, under the JAX package's names, env
 spellings, types and defaults, so one environment configures both packages
-alike. The JAX package's other knobs (scale, cold-start, multi-process)
-come with the modules that will read them.
+alike. The JAX package's multi-process knobs come with the module that will
+read them.
 
 Every knob resolves here, once, with type validation and a single
 precedence rule:
@@ -198,6 +198,44 @@ KNOBS: dict[str, Knob] = _knobs(
     Knob("quarantine_dlq_path", "LANGDETECT_QUARANTINE_DLQ_PATH", "str",
          None, "serve-level dead-letter JSONL for quarantined "
          "query-of-death signatures"),
+    # --- elastic scale (process replicas + autoscaler: scale/) ----------
+    Knob("scale_min", "LANGDETECT_SCALE_MIN", "int", 1,
+         "autoscaler floor: minimum live replicas", positive=True),
+    Knob("scale_max", "LANGDETECT_SCALE_MAX", "int", 4,
+         "autoscaler ceiling: maximum live replicas", positive=True),
+    Knob("scale_interval_ms", "LANGDETECT_SCALE_INTERVAL_MS", "float",
+         500.0, "autoscaler control-loop tick period", positive=True),
+    Knob("scale_up_ticks", "LANGDETECT_SCALE_UP_TICKS", "int", 2,
+         "consecutive pressure ticks before a scale-up", positive=True),
+    Knob("scale_down_ticks", "LANGDETECT_SCALE_DOWN_TICKS", "int", 6,
+         "consecutive idle ticks (the cooldown) before a scale-down",
+         positive=True),
+    Knob("scale_pressure_wait_ms", "LANGDETECT_SCALE_PRESSURE_WAIT_MS",
+         "float", 50.0, "estimated fleet queue wait that counts as SLO "
+         "pressure", positive=True),
+    Knob("scale_idle_rows_per_s", "LANGDETECT_SCALE_IDLE_ROWS_PER_S",
+         "float", 1.0, "arrival-rate EMA below which an empty-queue tick "
+         "counts idle", positive=True),
+    Knob("scale_spawn_timeout_s", "LANGDETECT_SCALE_SPAWN_TIMEOUT_S",
+         "float", 120.0, "process replica spawn-to-READY bound",
+         positive=True),
+    Knob("scale_max_restarts", "LANGDETECT_SCALE_MAX_RESTARTS", "int", 3,
+         "supervised restarts per replica incident before giving up",
+         positive=True),
+    Knob("scale_pidfile_dir", "LANGDETECT_SCALE_PIDFILE_DIR", "str", None,
+         "pidfile directory for orphan reaping (unset: per-fleet-name "
+         "tempdir)"),
+    # --- cold-start plane (artifacts/) -----------------------------------
+    Knob("compile_cache_dir", "LANGDETECT_COMPILE_CACHE_DIR", "str", None,
+         "kernel build cache directory shared across replica spawns: the "
+         "CUDA kernels' libraries and the lattice manifests (unset: the "
+         "package's build directory, no manifest)"),
+    Knob("artifact_dir", "LANGDETECT_ARTIFACT_DIR", "str", None,
+         "baked-artifact directory consulted on model load (unset: look "
+         "for a `.baked` sibling of the model tree)"),
+    Knob("bake_on_save", "LANGDETECT_BAKE_ON_SAVE", "bool", False,
+         "bake an mmap-ready artifact next to every successful model "
+         "save so later cold loads page in instead of parsing parquet"),
     # --- telemetry --------------------------------------------------------
     Knob("metrics_sink", "LANGDETECT_METRICS_SINK", "str", None,
          "metrics sink spec (jsonl:<path> / prometheus:<path>)"),

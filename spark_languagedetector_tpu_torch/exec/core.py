@@ -313,6 +313,10 @@ class AdmissionQueue:
         self._queues: dict[str, deque] = {p: deque() for p in self.lanes}
         self.queued_rows = 0
         self.inflight_rows = 0
+        # Cumulative rows ever admitted: the monotone arrival odometer the
+        # elastic fleet differentiates into an arrival rate (the dispatch
+        # EMA below holds its last value across silence).
+        self.admitted_rows = 0
         # Rows/s over recent dispatches (EMA): the estimated-wait shed
         # signal. Zero until the first dispatch lands.
         self.ema_rows_per_s = 0.0
@@ -355,6 +359,7 @@ class AdmissionQueue:
                     return self._shed_locked(reason, rows), wait_s
             self._queues[lane].append((item, int(rows), self._clock()))
             self.queued_rows += rows
+            self.admitted_rows += rows
             self._notify_change_locked()
             self._cv.notify_all()
         return None, wait_s
@@ -478,6 +483,7 @@ class AdmissionQueue:
                 "queue_depth": sum(len(q) for q in self._queues.values()),
                 "queued_rows": self.queued_rows,
                 "inflight_rows": self.inflight_rows,
+                "admitted_rows": self.admitted_rows,
                 "ema_rows_per_s": round(self.ema_rows_per_s, 3),
                 "max_rows": self.max_rows,
                 "max_wait_ms": self.max_wait_s * 1e3,

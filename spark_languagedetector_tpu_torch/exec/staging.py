@@ -14,6 +14,9 @@ The torch form of the JAX package's asynchronous ``jax.device_put`` and
 * :func:`copy_to_host_async` starts a result's copy into pinned memory with
   its own event; :func:`host_numpy` reads it only after the event has
   synchronized.
+* :func:`upload` sends a runner's table to its device the same way, through
+  a pinned buffer and one ``non_blocking`` copy; the tables of a baked
+  artifact page in from their read-only mapping there.
 
 Every kernel of the port launches on the current stream, which is also the
 stream of these copies, so no cross-stream ordering is needed. Pinned
@@ -176,3 +179,23 @@ def host_numpy(started) -> np.ndarray:
     if event is not None:
         event.synchronize()
     return host.numpy()
+
+
+def upload(arr, device) -> torch.Tensor:
+    """A host table as a tensor on ``device``, read from ``arr`` and never
+    written through it.
+
+    On the card: ``arr`` is copied into a pinned buffer (a baked artifact's
+    read-only ``np.memmap`` pages in here) and the buffer to the card in one
+    ``non_blocking`` copy on the current stream; the caching host allocator
+    keeps the buffer until that copy has run. On the CPU: ``arr`` itself
+    when it is writable, else a copy of it, so a CPU tensor never aliases a
+    read-only mapping (a write through one would fault)."""
+    arr = np.ascontiguousarray(arr)
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return torch.from_numpy(arr if arr.flags.writeable else arr.copy())
+    dtype = torch.from_numpy(np.empty(0, dtype=arr.dtype)).dtype
+    host = torch.empty(arr.shape, dtype=dtype, pin_memory=True)
+    host.numpy()[...] = arr
+    return host.to(dev, non_blocking=True)

@@ -52,7 +52,7 @@ from ..segment.calibrate import Calibration, fit_calibration, normalize_scores
 from ..telemetry import flightrec, span, trace_request
 from ..utils.device import resolve_device
 from ..utils.logging import get_logger, log_event
-from .profile import GramProfile
+from .profile import DENSE_TABLE_BUDGET_BYTES, GramProfile
 
 _log = get_logger("models.estimator")
 
@@ -543,6 +543,9 @@ class LanguageDetectorModel(HasInputCol, HasOutputCol, _ResultModeParams, _Devic
         state.pop("_runner_lock", None)
         state["_runner"] = None
         state["_runner_holds"] = 0
+        # A baked artifact's membership tables are views of a local file's
+        # mapping; copies rebuild membership from the profile.
+        state.pop("_prebuilt_membership", None)
         return state
 
     def __setstate__(self, state):
@@ -559,9 +562,19 @@ class LanguageDetectorModel(HasInputCol, HasOutputCol, _ResultModeParams, _Devic
 
     def _runner_locked(self) -> BatchRunner:
         if self._runner is None:
-            # Host tensors of the profile's device view (dense table, LUT or
-            # cuckoo table); the runner uploads what its strategy reads.
-            weights, lut, cuckoo = self.profile.device_membership(device="cpu")
+            # Host arrays of the profile's device view (dense table, LUT or
+            # cuckoo table); the runner uploads what its strategy reads. A
+            # baked artifact's loader attached them already mapped: when
+            # they were built under the dense budget used here, the runner
+            # reads the mapped views and nothing is rebuilt.
+            prebuilt = getattr(self, "_prebuilt_membership", None)
+            if (prebuilt is not None
+                    and prebuilt["dense_budget_bytes"] == DENSE_TABLE_BUDGET_BYTES):
+                weights, lut, cuckoo = (
+                    prebuilt["weights"], prebuilt["lut"], prebuilt["cuckoo"]
+                )
+            else:
+                weights, lut, cuckoo = self.profile.device_membership(device="cpu")
             self._runner = BatchRunner(
                 weights=weights,
                 lut=lut,

@@ -10,12 +10,15 @@ is compiled at import time: the first call that launches a kernel builds it
 all started together).
 
 Libraries land in ``build/kernels/`` at the root of a source checkout, or,
-for an installed package, in a per-user cache directory; either way they are
-named by a hash of their source, the shared headers (``csrc/*.cuh``) and the
-flags, so an edited source never loads a stale build. The build cache counts
-into the telemetry registry: ``compile_cache/hits`` for each library found
-already built, ``compile_cache/misses`` for each ``nvcc`` run, and each
-build's seconds in the ``compile_cache/build_s`` histogram.
+for an installed package, in a per-user cache directory, unless
+:func:`set_build_dir` points them elsewhere (the compile cache of
+``artifacts.compile_cache``, shared across replica processes); either way
+they are named by a hash of their source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source never loads a stale
+build. The build cache counts into the telemetry registry:
+``compile_cache/hits`` for each library found already built,
+``compile_cache/misses`` for each ``nvcc`` run, and each build's seconds in
+the ``compile_cache/build_s`` histogram.
 """
 
 from __future__ import annotations
@@ -56,6 +59,16 @@ def _build_dir() -> Path:
 
 
 BUILD_DIR = _build_dir()
+
+
+def set_build_dir(path) -> Path:
+    """Build and look up every kernel's library under ``path`` from now on.
+    A library this process has already loaded stays loaded."""
+    global BUILD_DIR
+    BUILD_DIR = Path(path)
+    return BUILD_DIR
+
+
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

@@ -24,6 +24,7 @@ near 2^32, so :func:`mix32_torch` splits each multiply into 16-bit halves
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Sequence
 
@@ -277,6 +278,20 @@ def prefix_hashes(batch: torch.Tensor, max_len: int, spec: VocabSpec) -> torch.T
     return torch.stack(cols, dim=1)
 
 
+@functools.lru_cache(maxsize=64)
+def _exact_partial_consts(
+    device: torch.device, offsets: tuple[int, ...]
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(256**k for k in 0..n, the id offset of each length 0..n)`` on
+    ``device`` for ``offsets`` of lengths 1..n, built once per device: a
+    tensor made from a host list is a pageable copy, which waits for all the
+    work queued on the stream, so building these per batch would hold the
+    host back behind the card at every dispatch."""
+    n = len(offsets)
+    pow256 = torch.tensor([256**k for k in range(n + 1)], device=device)
+    return pow256, torch.tensor((0,) + offsets, device=device)
+
+
 def partial_window_ids(
     batch: torch.Tensor,
     lengths: torch.Tensor,
@@ -292,12 +307,10 @@ def partial_window_ids(
     id is recovered with a shift into the length-``len`` id space. Hashed
     mode: FNV prefix buckets.
     """
-    dev = batch.device
     if spec.mode == EXACT:
         offsets = spec.offsets
-        pow256 = torch.tensor([256**k for k in range(n + 1)], device=dev)
-        off_by_len = torch.tensor(
-            [0] + [offsets[k] for k in range(1, n + 1)], device=dev
+        pow256, off_by_len = _exact_partial_consts(
+            batch.device, tuple(offsets[k] for k in range(1, n + 1))
         )
         len_c = lengths.long().clamp(0, n)
         return off_by_len[len_c] + torch.div(

@@ -282,6 +282,22 @@ def save_model(
         _log, "model.saved", path=str(root), grams=profile.num_grams,
         calibrated=calibration is not None,
     )
+    # With the bake_on_save knob on, every native save also bakes the
+    # mmap-ready artifact (same quantization codec, same calibration), so
+    # later cold loads map it instead of parsing this tree. The save has
+    # committed already: a failed bake is logged, never raised.
+    from ..exec import config as exec_config
+
+    if layout == "native" and exec_config.resolve("bake_on_save"):
+        from ..artifacts.bake import artifact_path_for, bake_artifact
+
+        try:
+            bake_artifact(
+                artifact_path_for(root), profile, uid, params,
+                calibration=calibration, quantize=quantize,
+            )
+        except Exception as e:
+            log_event(_log, "model.bake_failed", path=str(root), error=repr(e))
 
 
 def load_model(path: str | Path) -> tuple[GramProfile, str, dict, dict | None]:

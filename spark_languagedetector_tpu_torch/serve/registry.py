@@ -35,7 +35,7 @@ from typing import Iterator
 
 from ..telemetry import REGISTRY
 from ..utils.logging import get_logger, log_event
-from .batcher import ServeError
+from .batcher import ServeClosed, ServeError
 
 _log = get_logger("serve.registry")
 
@@ -103,7 +103,8 @@ class ModelRegistry:
     ``device`` is where :meth:`load` puts the models it reads (None: the
     CUDA card, which raises without one). Swaps (``commit``, ``rollback``,
     ``activate``) are serialized among themselves; leases never wait for
-    a runner build.
+    a runner build. A swap under way counts as :meth:`busy`; after
+    :meth:`close`, a swap raises :class:`ServeClosed` and keeps no runner.
     """
 
     def __init__(
@@ -120,6 +121,27 @@ class ModelRegistry:
         self._active_idx: int | None = None
         self._counter = 0
         self._drain_timeout_s = drain_timeout_s
+        self._swaps = 0  # install/rollback/activate calls under way
+        self._closed = False
+
+    @contextmanager
+    def _swapping(self) -> Iterator[None]:
+        with self._lock:
+            self._swaps += 1
+        try:
+            yield
+        finally:
+            with self._lock:
+                self._swaps -= 1
+
+    def _refuse_closed_locked(self, model, runner) -> None:
+        """A swap that reaches a closed registry gives its runner back (a
+        hold taken and released, so a runner nothing else holds is
+        dropped) and raises (caller holds the lock)."""
+        if self._closed:
+            model.hold_runner(runner)
+            model.release_runner()
+            raise ServeClosed("model registry is closed")
 
     # ------------------------------------------------------------ swaps -----
     @staticmethod
@@ -172,10 +194,11 @@ class ModelRegistry:
         documents seen here, so an operator can tell which accumulated
         corpus a serving version was finalized from.
         """
-        return self.commit(self.prepare(
-            model, version=version, prewarm=prewarm, source=source,
-            metadata=metadata,
-        ))
+        with self._swapping():
+            return self.commit(self.prepare(
+                model, version=version, prewarm=prewarm, source=source,
+                metadata=metadata,
+            ))
 
     def commit(self, prepared: PreparedVersion) -> str:
         """Phase 2 of a swap: atomically flip the serving pointer to a
@@ -183,6 +206,7 @@ class ModelRegistry:
         version = prepared.version
         with self._swap_lock:
             with self._cv:
+                self._refuse_closed_locked(prepared.model, prepared.runner)
                 if version is None:
                     # Auto names skip anything already registered (an
                     # explicit install may have claimed a future "vN").
@@ -216,25 +240,32 @@ class ModelRegistry:
         version: str | None = None,
         device: str | None = None,
         artifact: str | None = None,
+        prewarm: bool = True,
     ) -> str:
         """Load a saved model directory (this package's or the JAX
         package's layout) onto ``device`` (default: the registry's) and
-        swap it in."""
-        if artifact is not None:
-            raise ValueError(
-                "baked artifacts are not ported yet (ROADMAP Queue 1 item 10, "
-                "cold start); load the saved model directory instead"
-            )
-        from ..models.estimator import LanguageDetectorModel
+        swap it in.
 
-        model = LanguageDetectorModel.load(path, device=device or self.device)
-        return self.install(model, version=version, source=str(path))
+        Cold-start fast path: when a baked artifact exists for ``path``
+        (``artifact``, else the ``.baked`` sibling or the ``artifact_dir``
+        knob), the model is mapped from it instead of parsed from parquet,
+        with bit-identical scores; a missing, torn or foreign artifact
+        loads the parquet tree (``artifacts.maybe_load_baked``)."""
+        from ..artifacts.bake import maybe_load_baked
+
+        device = device or self.device
+        model = maybe_load_baked(path, artifact, device=device)
+        if model is None:
+            from ..models.estimator import LanguageDetectorModel
+
+            model = LanguageDetectorModel.load(path, device=device)
+        return self.install(model, version=version, prewarm=prewarm, source=str(path))
 
     def _flip_to(self, pick, counter: str, event: str) -> str:
         """Flip the pointer to the entry ``pick(history, active_idx)``
         names (an index, or the active one for a no-op), building and
         prewarming its runner first if it was released."""
-        with self._swap_lock:
+        with self._swapping(), self._swap_lock:
             with self._cv:
                 idx = pick(self._history, self._active_idx)
                 entry = self._history[idx]
@@ -244,6 +275,7 @@ class ModelRegistry:
             if runner is None:
                 runner = self._warm_runner(entry.model)
             with self._cv:
+                self._refuse_closed_locked(entry.model, runner)
                 # Runner, pointer and flag in one critical section: a lease
                 # ending on this entry can no longer release the runner.
                 if entry.runner is None:
@@ -320,6 +352,7 @@ class ModelRegistry:
         """Give back every version's runner hold (the registry serves no
         more: a zoo tenant paged out). Call it with no lease held."""
         with self._cv:
+            self._closed = True
             for entry in self._history:
                 if entry.runner is not None:
                     entry.runner = None
@@ -355,9 +388,10 @@ class ModelRegistry:
         return self.peek().version
 
     def busy(self) -> bool:
-        """True while any version in history holds an in-flight lease."""
+        """True while a swap is under way or any version in history holds
+        an in-flight lease."""
         with self._lock:
-            return any(e.inflight > 0 for e in self._history)
+            return self._swaps > 0 or any(e.inflight > 0 for e in self._history)
 
     def versions(self) -> list[dict]:
         with self._lock:

@@ -26,9 +26,9 @@ its tenant's:
 
 A failed cold load (an injected ``zoo/load`` fault included) is
 :class:`TenantLoadShed`: 503 with Retry-After for that tenant only. A cold
-load reads the tenant's saved directory with
-``LanguageDetectorModel.load``; the baked-artifact load of the JAX package
-(``artifacts/bake.maybe_load_baked``) is not ported yet.
+load maps the tenant's baked artifact when one exists
+(``artifacts.maybe_load_baked``: no parquet parse, no membership rebuild)
+and otherwise reads its saved directory with ``LanguageDetectorModel.load``.
 """
 
 from __future__ import annotations
@@ -312,6 +312,10 @@ class ModelZoo:
             faults.inject("zoo/load")
             model = entry.model
             if model is None:
+                from ..artifacts.bake import maybe_load_baked
+
+                model = maybe_load_baked(entry.source, device=self.device)
+            if model is None:
                 from ..models.estimator import LanguageDetectorModel
 
                 model = LanguageDetectorModel.load(entry.source, device=self.device)
@@ -426,10 +430,17 @@ class ModelZoo:
             with self._lock:
                 rt = entry.runtime
             if rt is not None:
-                vname = rt.registry.install(
-                    model, version=vname, prewarm=self.prewarm if prewarm is None else prewarm,
-                    source=source, metadata=meta,
-                )
+                # The registry counts as busy while it swaps, so no page-out
+                # lands under the swap; one that came first closed it, and
+                # the tenant's next cold load serves the new version.
+                try:
+                    vname = rt.registry.install(
+                        model, version=vname,
+                        prewarm=self.prewarm if prewarm is None else prewarm,
+                        source=source, metadata=meta,
+                    )
+                except ServeClosed:
+                    rt = None
             with self._lock:
                 entry.model = model
                 entry.version = vname

@@ -1079,8 +1079,13 @@ def test_clients_and_router_fronts_of_both_packages_interoperate():
     docs = texts_to_bytes(XTEXTS)
     fleets = {}
     for name, P in pk.items():
+        # The pin on r0 below is the router's tie-break, which only holds
+        # when the first probe round finds both replicas ready: a loaded
+        # machine must not turn a slow readyz into an unready r0.
         fl = P.fleet(path_a, replicas=2, router_kw={**ROUTER_KW,
-                     "quarantine": P.Quarantine(0, name="off")}, max_wait_ms=2)
+                     "quarantine": P.Quarantine(0, name="off"),
+                     "probe_timeout_s": PARITY_PROBE_TIMEOUT_S}, max_wait_ms=2)
+        _settle(fl)
         fleets[name] = fl.start(probe=False)
     try:
         with pk["torch"].Front(fleets["torch"].router, port=0) as front, \

@@ -37,6 +37,9 @@
   ``exec/tune.py`` included, nor in ``chip_smoke.py``, and no
   ``importlib`` in the port's pipeline loader, which looks stage classes up
   in a fixed table.
+* An eighth, with ``jax`` unimportable, bakes and maps a model, prewarms
+  through the kernel build cache, and supervises two replica children that
+  cannot import ``jax`` either.
 * With no device given and no CUDA card, the entry points raise, the
   serving ones (``ModelRegistry.load``, ``python -m
   spark_languagedetector_tpu_torch.serve.server``, ``ServeFleet.from_path``
@@ -453,6 +456,72 @@ def test_telemetry_clis_and_tuner_run_with_jax_unimportable(tmp_path):
     assert res.stdout.strip().endswith("isolated")
 
 
+def test_cold_start_and_replica_children_run_with_jax_unimportable(tmp_path):
+    """An eighth subprocess, with ``jax`` unimportable, bakes a model, maps
+    it back, prewarms through the build cache, and supervises two replica
+    children whose own interpreters cannot import ``jax`` either (a
+    ``sitecustomize`` on their ``PYTHONPATH`` blocks it): both reach READY
+    on the verified-warm cache and answer over HTTP."""
+    blocker = tmp_path / "blocker"
+    blocker.mkdir()
+    (blocker / "sitecustomize.py").write_text(
+        "import sys\n"
+        "for name in ('jax', 'jaxlib', 'spark_languagedetector_tpu'):\n"
+        "    sys.modules[name] = None\n"
+    )
+    script = textwrap.dedent(
+        f"""
+        import os, sys
+        for name in ("jax", "jaxlib", "spark_languagedetector_tpu"):
+            sys.modules[name] = None  # any import of it raises ImportError
+        from spark_languagedetector_tpu_torch import LanguageDetector, Table
+        from spark_languagedetector_tpu_torch.artifacts import (
+            artifact_path_for, bake_model, enable_compile_cache, maybe_load_baked,
+            prewarm_lattice)
+        from spark_languagedetector_tpu_torch.scale import ReplicaSupervisor
+        from spark_languagedetector_tpu_torch.serve import ServeClient
+        root = {str(tmp_path)!r}
+        table = Table({{"lang": ["en", "de"] * 3,
+                       "fulltext": ["the cat sat", "der hund lief", "a dog barks",
+                                    "die katze schläft", "the end is near",
+                                    "das ende ist nah"]}})
+        model = LanguageDetector(["en", "de"], [1, 2, 3], 50, device="cpu").fit(table)
+        model.save(f"{{root}}/m")
+        bake_model(model, artifact_path_for(f"{{root}}/m"), quantize="int16")
+        baked = maybe_load_baked(f"{{root}}/m", device="cpu")
+        assert baked is not None and hasattr(baked, "_prebuilt_membership")
+        docs = [b"the dog barks", b"der hund"]
+        assert list(baked.runner.predict_ids(docs)) == [0, 1]
+        cache = enable_compile_cache(f"{{root}}/cc")
+        assert prewarm_lattice(baked.runner, cache_dir=cache)["mode"] == "full"
+        sup = ReplicaSupervisor(
+            f"{{root}}/m", device="cpu", pidfile_dir=f"{{root}}/pids", compile_cache_dir=cache,
+            child_env={{"PYTHONPATH": {str(blocker)!r}}})
+        try:
+            first = sup.spawn("r0")
+            second = sup.spawn("r1")
+            # The manifest this process's full prewarm wrote serves both.
+            for rep in (first, second):
+                assert rep.last_prewarm_mode == "sentinel", rep.last_ready
+            for rep in (first, second):
+                labels, meta = ServeClient(*rep.address).detect(["the dog barks", "der hund"])
+                assert labels == ["en", "de"] and meta["server"]["platform"] == "cpu", meta
+        finally:
+            sup.close()
+        bad = sorted(m for m, mod in sys.modules.items() if mod is not None
+                     and m.split(".")[0] in ("jax", "jaxlib", "spark_languagedetector_tpu"))
+        assert not bad, bad
+        print("isolated")
+        """
+    )
+    res = subprocess.run(
+        [sys.executable, "-c", script],
+        cwd=PORT_DIR.parent, capture_output=True, text=True, timeout=180,
+    )
+    assert res.returncode == 0, res.stderr[-4000:]
+    assert res.stdout.strip().endswith("isolated")
+
+
 def test_serving_entry_points_raise_without_a_card(tmp_path):
     """``ModelRegistry.load`` with no device, and the server's module entry
     point, need the card: with none visible they raise, never serve on the
@@ -543,7 +612,8 @@ def test_no_module_of_the_port_imports_jax():
         p.name for p in (PORT_DIR / "stream").glob("*.py")
     }
     for rel in ("models/refit.py", "persist/checkpoint.py", "resilience/dlq.py",
-                "telemetry/export.py"):
+                "telemetry/export.py", "artifacts/bake.py", "artifacts/compile_cache.py",
+                "scale/replica.py", "scale/autoscaler.py", "scale/elastic.py"):
         assert (PORT_DIR / rel).is_file(), rel
 
 

@@ -491,6 +491,37 @@ def test_registry_rollback_rebuilds_released_runner_and_frees_it():
         registry.activate("v9")
 
 
+def test_registry_is_busy_while_it_swaps_and_refuses_a_swap_once_closed():
+    """An install or rollback counts as busy from its runner build to its
+    flip (a zoo never pages a tenant out under one). After close(), a swap
+    raises ServeClosed and keeps no runner: none is built into a registry
+    that no longer serves, so none outlives it."""
+    model_a, model_b, model_c = _model(seed=3), _model(seed=4), _model(seed=5)
+    registry = ModelRegistry(device="cpu", drain_timeout_s=1.0)
+    v_a = registry.install(model_a)
+    assert not registry.busy()
+    seen = []
+    real_warm = registry._warm_runner
+
+    def warm(model, prewarm=True):
+        seen.append(registry.busy())
+        return real_warm(model, prewarm)
+
+    registry._warm_runner = warm
+    v_b = registry.install(model_b)
+    model_a.release_runner()  # no caller but the registry holds a's runner
+    assert registry.rollback() == v_a  # a's runner was released: rebuilt
+    assert seen == [True, True] and not registry.busy()
+    registry._warm_runner = real_warm
+    registry.close()
+    for swap in (lambda: registry.install(model_c), lambda: registry.activate(v_b)):
+        with pytest.raises(ServeClosed, match="registry is closed"):
+            swap()
+        assert not registry.busy()
+    for model in (model_a, model_b, model_c):
+        assert model._runner is None and model._runner_holds == 0
+
+
 def test_registry_explicit_version_never_collides_with_auto():
     registry = ModelRegistry(device="cpu", drain_timeout_s=0.5)
     registry.install(_model(seed=11), version="v2")
@@ -562,8 +593,11 @@ def test_registry_lease_pins_version_during_swap():
 
 def test_registry_load_from_disk_either_package(tmp_path):
     """load() goes through the port's LanguageDetectorModel.load, so a
-    model saved by either package serves; a baked artifact is refused."""
+    model saved by either package serves; a baked artifact named by
+    ``artifact=`` is mapped instead (``artifacts/baked_loads``) and serves
+    the same scores."""
     from spark_languagedetector_tpu import LanguageDetectorModel as JaxModel
+    from spark_languagedetector_tpu_torch.artifacts import bake_model
 
     model = _model(seed=5)
     model.save(str(tmp_path / "m"))
@@ -576,8 +610,14 @@ def test_registry_load_from_disk_either_package(tmp_path):
     assert registry.peek().languages == LANGS
     with pytest.raises(ServeError, match="already registered"):
         registry.load(str(tmp_path / "m"), version=v1)
-    with pytest.raises(ValueError, match="item 10"):
-        registry.load(str(tmp_path / "m"), artifact=str(tmp_path / "m.baked"))
+    bake_model(model, tmp_path / "m.baked")
+    baked0 = REGISTRY.snapshot()["counters"].get("artifacts/baked_loads", 0)
+    v_baked = registry.load(str(tmp_path / "m"), artifact=str(tmp_path / "m.baked"))
+    assert REGISTRY.snapshot()["counters"]["artifacts/baked_loads"] == baked0 + 1
+    assert hasattr(registry.peek().model, "_prebuilt_membership")
+    np.testing.assert_array_equal(registry.peek().runner.score([b"abab", b"zzab"]),
+                                  model.runner.score([b"abab", b"zzab"]))
+    assert registry.rollback() == v1 and v_baked != v1
     docs = [b"abab", b"zzab"]
     with ContinuousBatcher(registry, max_wait_ms=2) as b:
         np.testing.assert_array_equal(b.submit(docs).result(timeout=30).values,

@@ -100,3 +100,25 @@ def test_exact_long_window_ids_point_to_packed_keys():
             tv.window_ids_numpy(batch, n, spec),
             jv.window_ids_numpy(batch, n, jv.VocabSpec("exact", tuple(range(1, n + 1)))),
         )
+
+
+def test_exact_partial_ids_build_no_host_tensor_per_call(monkeypatch):
+    """A tensor made from a host list is a pageable copy, which on the card
+    waits for everything queued on the stream: the exact-mode partial-window
+    constants are built once per device, never per batch."""
+    spec = tv.VocabSpec("exact", (1, 2, 3), 20)
+    batch, lengths = _batch(3)
+    tb, tl = torch.from_numpy(batch), torch.from_numpy(lengths)
+    w0 = tv.window_ids(tb, 3, spec)[:, 0]
+    first = tv.partial_window_ids(tb, tl, 3, w0, spec)
+    made = []
+    real = torch.tensor
+
+    def counting(*args, **kwargs):
+        made.append(args)
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(torch, "tensor", counting)
+    again = tv.partial_window_ids(tb, tl, 3, w0, spec)
+    assert made == []
+    assert torch.equal(first, again)

@@ -362,6 +362,79 @@ def test_rollback_then_eviction_reloads_the_rolled_back_model():
         zoo.close()
 
 
+@pytest.mark.parametrize("swap", ["install", "rollback"])
+def test_a_page_out_never_lands_under_a_swap(swap):
+    """A swap runs on the tenant's registry outside the zoo lock. A cold
+    load that needs the tenant's room meanwhile loads over budget instead of
+    paging it out: a page-out there would close the registry under the swap,
+    whose new version would keep its runner hold, and its tables would
+    outlive the zoo."""
+    first = LanguageDetectorModel(_model(1).profile, device="cpu")
+    second = LanguageDetectorModel(_model(9).profile, device="cpu")
+    zoo = _zoo(resident_models=1)
+    zoo.add_tenant("a", first)
+    zoo.add_tenant("b", _model(2))
+    try:
+        _, rt = zoo.runtime("a")
+        if swap == "rollback":
+            zoo.install("a", second)
+            assert first._runner is None  # v1's runner went with its retirement
+        registry = rt.registry
+        real_warm = registry._warm_runner
+
+        def warm_then_cold_load_b(model, prewarm=True):
+            runner = real_warm(model, prewarm)
+            zoo.runtime("b")  # needs a's room while the swap is under way
+            return runner
+
+        registry._warm_runner = warm_then_cold_load_b
+        if swap == "install":
+            assert zoo.install("a", second) == "v2"
+        else:
+            assert zoo.rollback("a") == "v1"
+        served = first if swap == "rollback" else second
+        assert zoo._entries["a"].runtime is rt and registry.peek().model is served
+        assert "a" in zoo.resident()  # b loaded over budget; a stayed
+        np.testing.assert_array_equal(_ask(rt).values, _labels(served))
+        runner = weakref.ref(registry.peek().runner)
+    finally:
+        zoo.close()
+    gc.collect()
+    assert runner() is None
+    assert served._runner is None and served._runner_holds == 0
+
+
+def test_an_install_behind_a_page_out_lands_on_the_next_cold_load():
+    """A page-out that lands between an install's read of the tenant's
+    runtime and its swap closes the registry first: the swap is refused,
+    keeps no runner, and the tenant's next cold load serves the new
+    version."""
+    second = LanguageDetectorModel(_model(9).profile, device="cpu")
+    zoo = _zoo(resident_models=1)
+    zoo.add_tenant("a", LanguageDetectorModel(_model(1).profile, device="cpu"))
+    try:
+        _, rt = zoo.runtime("a")
+        real_install = rt.registry.install
+
+        def paged_out_first(*a, **k):
+            with zoo._lock:
+                zoo._residency.drop("a")
+                zoo._evict_locked("a")
+            zoo._finish_evictions()
+            return real_install(*a, **k)
+
+        rt.registry.install = paged_out_first
+        assert zoo.install("a", second) == "v2" and zoo.version("a") == "v2"
+        assert zoo._entries["a"].runtime is None and "a" not in zoo.resident()
+        assert second._runner is None and second._runner_holds == 0
+        got = _ask(zoo.runtime("a")[1])
+        assert got.version == "v2"
+        np.testing.assert_array_equal(got.values, _labels(second))
+    finally:
+        zoo.close()
+    assert second._runner is None and second._runner_holds == 0
+
+
 def test_install_on_paged_out_tenant_lands_on_next_cold_load():
     zoo = _zoo(resident_models=1)
     zoo.add_tenant("a", _model(1))
