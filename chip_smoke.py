@@ -272,6 +272,29 @@ Phases, one line or more each; any failure exits non-zero before the verdict:
    ``langdetect_kernel_launches`` gauge of each child's terminal snapshot in
    its JSONL capture), join the kernels line; a child that dispatched and
    launched nothing fails the phase.
+24. mesh     — multi-device on the one card, in child processes started from
+   this checkout (the kernel build directory is warm), so the parent's CUDA
+   context and process group are untouched. First one rank on NCCL
+   (``init_distributed`` with a ``file://`` rendezvous; NCCL's version
+   printed), then two ranks sharing the card over gloo. Each rank: a
+   config-5 device fit through ``resolve_fit_mesh()`` (phase 4's training
+   corpus; the table stripes over the data axis) with phase 11's ids and
+   weights; a ``device="mesh"`` transform of phase 4's 6,004 documents with
+   phase 4's labels through ``fused_detect``; ``resultMode="segment"`` over
+   120 code-switched documents with the single-device JSON through
+   ``fused_segment``; phase 6's config-3 model (hybrid: ``row_hist``,
+   ``bigram_hist``) and a 10-language exact n = 1..5 model (hybrid, its
+   n <= 2 part through ``bigram_score``) with the single-device labels; ``device="mesh:vocab"``
+   on a dense 2^16 x 176 table (data 1 x vocab 2 on two ranks, a striped
+   gather) with the replicated gather's scores in the reduction-order
+   class; a 400 KB document through ``score_long_document`` and
+   ``ring_score_chunks``, equal to each other and in that class of the
+   single-device sum. Each rank writes its kernels' launches
+   (``langdetect_kernel_launches{kernel, stage="mesh"}``) into a terminal
+   snapshot; the kernels line adds them up, and every rank must have
+   launched all five kernels. Printed, claiming nothing (two ranks on one
+   card measure no scaling): the sharded fit's walls against fit5's, and
+   the transform's docs/s on one rank and on two.
 
 Each phase prints its seconds. Phase 2 also builds the native packer
 (``native/*.cpp`` with g++) and fails if it cannot.
@@ -5107,6 +5130,311 @@ def phase_scale(torch, dev, model5, texts5, dirs, arts, tmp, smi_line) -> dict:
     return {k: own[k] + launches[k] + elaunch[k] for k in ("fused_detect", "fused_segment")}
 
 
+# ------------------------------------------------------------- phase 24 ----
+MESH_SEGMENT_DOCS = 120  # code-switched documents of the segment check
+MESH_VOCAB_DOCS = 1000  # documents of the mesh:vocab score check
+MESH_LONG_DOC_BYTES = 400_000  # the long document of the sequence check
+MESH_VOCAB_BITS = 16  # the mesh:vocab model's hashed buckets: a dense 2^16 x 176 table
+MESH_KERNELS = ("fused_detect", "fused_segment", "row_hist", "bigram_hist", "bigram_score")
+
+
+def mesh_child(spec_path: str, rank: int) -> None:
+    """``chip_smoke.py --mesh-rank SPEC RANK``: one rank of phase 24. Joins
+    the process group through ``init_distributed``, runs the checks against
+    the parent's single-device answers, writes its kernels' launch counts
+    into a terminal snapshot of its JSONL capture and prints one JSON
+    object; any check that does not hold fails the process."""
+    sys.path.insert(0, str(ROOT))
+    import torch
+
+    import spark_languagedetector_tpu_torch as port
+    from spark_languagedetector_tpu_torch import LanguageDetector, LanguageDetectorModel, Table
+    from spark_languagedetector_tpu_torch.api.runner import resolve_fit_mesh, resolve_mesh
+    from spark_languagedetector_tpu_torch.artifacts import maybe_load_baked
+    from spark_languagedetector_tpu_torch.ops import _kernels
+    from spark_languagedetector_tpu_torch.ops import score_fused as SF
+    from spark_languagedetector_tpu_torch.ops import score_hist as SH
+    from spark_languagedetector_tpu_torch.ops import score_pallas as SP
+    from spark_languagedetector_tpu_torch.parallel import distributed
+    from spark_languagedetector_tpu_torch.parallel.sequence import (
+        chunk_grid, ring_score_chunks, score_long_document)
+    from spark_languagedetector_tpu_torch.telemetry import REGISTRY
+    from spark_languagedetector_tpu_torch.telemetry.export import JsonlSink
+
+    spec = json.loads(Path(spec_path).read_text())
+    tmp = Path(spec["tmp"])
+    world = spec["world"]
+    on_card = spec["device"] == "cuda"
+    if on_card and not torch.cuda.is_available():
+        fail("mesh child: no CUDA card")
+    REGISTRY.add_sink(JsonlSink(spec["captures"][rank]))
+    if not on_card:  # a CPU rehearsal counts the plain versions' calls as launches
+        for mod, name, kernel in ((SF, "fused_plain", _kernels.FUSED_DETECT),
+                                  (SF, "fused_segment_plain", _kernels.FUSED_SEGMENT),
+                                  (SH, "row_hist_plain", _kernels.ROW_HIST),
+                                  (SP, "bigram_hist_plain", _kernels.BIGRAM_HIST),
+                                  (SP, "bigram_score_plain", _kernels.BIGRAM_SCORE)):
+            def counted(*a, _f=getattr(mod, name), _k=kernel, **k):
+                _k.launches += 1
+                return _f(*a, **k)
+
+            setattr(mod, name, counted)
+    t0 = time.perf_counter()
+    port.init_distributed(spec["init"], world, rank, device=None if on_card else "cpu")
+    import torch.distributed as dist
+
+    out = {"rank": rank, "world": world, "backend": dist.get_backend(),
+           "init_s": time.perf_counter() - t0}
+    if out["backend"] == "nccl":
+        out["nccl"] = ".".join(map(str, torch.cuda.nccl.version()))
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    for k in _kernels.KERNELS:
+        k.launches = 0
+    texts = json.loads(Path(tmp, "texts5.json").read_text())
+    train = json.loads(Path(tmp, "train5.json").read_text())
+
+    # The sharded device fit through resolve_fit_mesh().
+    mesh = resolve_fit_mesh()
+    det = (LanguageDetector(train["languages"], [1, 2, 3, 4, 5], 400)
+           .set_vocab_mode("hashed").set_hash_bits(20).set_fit_backend("device")
+           .set_device("mesh"))
+    table = Table({"lang": train["lang"], "fulltext": train["fulltext"]})
+    fit_s = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        fitted = det.fit(table)
+        sync()
+        fit_s.append(time.perf_counter() - t0)
+    ids = np.load(tmp / "fit5_ids.npy")
+    weights = np.load(tmp / "fit5_weights.npy")
+    if not np.array_equal(fitted.profile.ids, ids):
+        fail(f"mesh rank {rank}/{world}: the sharded fit's ids differ from fit5's")
+    if not np.allclose(fitted.profile.weights, weights, rtol=0, atol=1e-12):
+        fail(f"mesh rank {rank}/{world}: the sharded fit's weights differ from fit5's")
+    out.update(fit_mesh=dict(mesh.shape), fit_s=fit_s,
+               fit_bit_identical=bool(np.array_equal(fitted.profile.weights, weights)))
+    del fitted
+
+    def labels_of(model, docs):
+        got = model.transform(Table({"fulltext": docs})).column("lang").tolist()
+        idx = {name: i for i, name in enumerate(model.profile.languages)}
+        return np.asarray([idx[name] for name in got])
+
+    def check(what, got, want):
+        if not np.array_equal(got, want):
+            fail(f"mesh rank {rank}/{world}: {what}: {int((got != want).sum())} of {len(want)} "
+                 "labels differ from the single-device run")
+
+    # Label mode at config 5 through fused_detect (the baked model).
+    m5 = maybe_load_baked(tmp / "m5", device="mesh")
+    runner = m5.runner
+    if runner.mesh is None or runner.strategy != "fused":
+        fail(f"mesh rank {rank}: config 5 runner {runner.strategy} on mesh {runner.mesh}")
+    walls = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        got = labels_of(m5, texts)
+        sync()
+        walls.append(time.perf_counter() - t0)
+    check("config 5 labels", got, np.load(tmp / "ids5.npy"))
+    out.update(transform_docs=len(texts), transform_s=walls, mesh=dict(runner.mesh.shape))
+
+    # Segment mode through fused_segment: spans identical.
+    seg = m5.copy({"resultMode": "segment"})
+    seg.calibration = m5.calibration
+    seg_texts = json.loads(Path(tmp, "seg_texts.json").read_text())
+    got_seg = seg.transform(Table({"fulltext": seg_texts})).column("lang").tolist()
+    if got_seg != json.loads(Path(tmp, "seg_ref.json").read_text()):
+        fail(f"mesh rank {rank}/{world}: segment results differ from the single-device run")
+
+    # Config 3 (hybrid: row_hist, and bigram_hist for n <= 2 at 50
+    # languages) and the 10-language exact n = 1..5 profile (hybrid: its
+    # n <= 2 part through bigram_score, L <= 16).
+    for name, strategy in (("m3", "hybrid"), ("m10", "hybrid")):
+        model = LanguageDetectorModel.load(str(tmp / name), device="mesh")
+        if model.runner.strategy != strategy:
+            fail(f"mesh rank {rank}: {name} runner strategy {model.runner.strategy}")
+        docs = json.loads(Path(tmp, f"texts_{name}.json").read_text())
+        check(f"{name} labels", labels_of(model, docs), np.load(tmp / f"ids_{name}.npy"))
+
+    # mesh:vocab on the dense gather table: scores in the reduction-order class.
+    mv = LanguageDetectorModel.load(str(tmp / "mv"), device="mesh:vocab")
+    ref_v = np.load(tmp / "vocab_ref.npy")
+    got_v = mv.runner.score([t.encode() for t in texts[: len(ref_v)]])
+    err = float(np.abs(got_v - ref_v).max())
+    if not np.all(np.abs(got_v - ref_v) <= ATOL + RTOL * np.abs(ref_v)):
+        fail(f"mesh rank {rank}: mesh:vocab scores {err} from the replicated gather")
+    out.update(vocab_mesh=dict(mv.runner.mesh.shape), vocab_strategy=mv.runner.strategy,
+               vocab_max_abs_err=err)
+
+    # One long document over the data axis: psum and ring.
+    w5, lut5, _ = m5.profile.device_membership(device=str(runner.device))
+    long_doc = Path(tmp, "long_doc.bin").read_bytes()
+    data_mesh = resolve_mesh("mesh")
+    t0 = time.perf_counter()
+    psum = score_long_document(long_doc, w5, lut5, m5.profile.spec, data_mesh)
+    b, ln, lim = chunk_grid(long_doc, data_mesh.shape["data"], 8192, m5.profile.spec.gram_lengths)
+    ring = ring_score_chunks(b, ln, lim, w5, lut5, m5.profile.spec, data_mesh).cpu().numpy()
+    sync()
+    out["long_doc_s"] = time.perf_counter() - t0
+    single = np.load(tmp / "long_ref.npy")
+    if not np.array_equal(psum, ring):
+        fail(f"mesh rank {rank}: the ring's sum differs from the psum's")
+    if not np.all(np.abs(psum - single) <= ATOL + RTOL * np.abs(single)):
+        fail(f"mesh rank {rank}: the long document's sum is "
+             f"{float(np.abs(psum - single).max())} from the single-device sum")
+    out["long_doc_err"] = float(np.abs(psum - single).max())
+
+    launches = {k.name: k.launches for k in _kernels.KERNELS}
+    missing = [k for k in MESH_KERNELS if launches.get(k, 0) <= 0]
+    if missing:
+        fail(f"mesh rank {rank}/{world}: no launch of {missing} ({launches})")
+    for k in _kernels.KERNELS:
+        REGISTRY.set_gauge("langdetect_kernel_launches", k.launches, kernel=k.name, stage="mesh")
+    REGISTRY.flush()
+    out["launches"] = launches
+    dist.barrier()
+    distributed.shutdown()
+    print(json.dumps(out))
+
+
+def run_mesh_children(tmp: Path, world: int, device: str) -> list[dict]:
+    """Phase 24's ``world`` rank processes, started together from this
+    checkout (its kernel build directory is warm) and waited for; each
+    one's JSON result."""
+    spec = tmp / f"mesh{world}.json"
+    captures = [str(tmp / f"mesh{world}_r{r}.jsonl") for r in range(world)]
+    spec.write_text(json.dumps({"tmp": str(tmp), "world": world, "device": device,
+                                "init": f"file://{tmp}/init{world}", "captures": captures}))
+    procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--mesh-rank",
+                               str(spec), str(r)], stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for r in range(world)]
+    outs = []
+    try:
+        for r, p in enumerate(procs):
+            stdout, stderr = p.communicate(timeout=300)
+            if p.returncode != 0:
+                fail(f"mesh: rank {r} of {world} failed (exit {p.returncode}): {stderr[-3000:]}")
+            outs.append(json.loads(stdout.strip().splitlines()[-1]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return outs
+
+
+def phase_mesh(torch, dev, model5, texts5, ids5, case5: FitCase, fit5_model, model3,
+               case3: FitCase, tmp, smi_line) -> dict:
+    """Multi-device on the one card (phase 24 of the module docstring).
+    Returns the children's launches."""
+    from spark_languagedetector_tpu_torch import LanguageDetector, Table
+    from spark_languagedetector_tpu_torch.api.runner import BatchRunner
+    from spark_languagedetector_tpu_torch.artifacts import artifact_path_for, bake_model
+    from spark_languagedetector_tpu_torch.parallel.mesh import build_mesh
+    from spark_languagedetector_tpu_torch.parallel.sequence import score_long_document
+
+    tmp = Path(tmp)
+    t_setup = time.perf_counter()
+    langs = list(model5.profile.languages)
+    # The single-device answers the ranks are held to.
+    model5.save(str(tmp / "m5"))
+    bake_model(model5, artifact_path_for(tmp / "m5"))
+    (tmp / "texts5.json").write_text(json.dumps(texts5))
+    np.save(tmp / "ids5.npy", ids5)
+    (tmp / "train5.json").write_text(json.dumps({
+        "languages": langs, "lang": case5.table.column("lang").tolist(),
+        "fulltext": case5.table.column("fulltext").tolist()}))
+    np.save(tmp / "fit5_ids.npy", fit5_model.profile.ids)
+    np.save(tmp / "fit5_weights.npy", fit5_model.profile.weights)
+    det5 = case5.det.copy({"fitBackend": "device"})
+    t0 = time.perf_counter()
+    det5.fit(case5.table)
+    torch.cuda.synchronize() if dev.type == "cuda" else None
+    fit5_s = time.perf_counter() - t0
+    seg = model5.copy({"resultMode": "segment"})
+    seg.calibration = model5.calibration
+    seg_texts, _ = make_codeswitch_corpus(langs, MESH_SEGMENT_DOCS, seed=41)
+    (tmp / "seg_texts.json").write_text(json.dumps(seg_texts))
+    (tmp / "seg_ref.json").write_text(json.dumps(
+        seg.transform(Table({"fulltext": seg_texts})).column("lang").tolist()))
+    model3.save(str(tmp / "m3"))
+    (tmp / "texts_m3.json").write_text(json.dumps(case3.texts))
+    np.save(tmp / "ids_m3.npy", case3.ids)
+    langs10 = language_names(10)
+    train10, labels10 = make_corpus(langs10, 60 * len(langs10), seed=43)
+    m10 = (LanguageDetector(langs10, [1, 2, 3, 4, 5], 1000, device=str(dev))
+           .set_vocab_mode("exact").fit(Table({"lang": labels10, "fulltext": train10})))
+    if m10.runner.strategy != "hybrid":
+        fail(f"mesh: the 10-language runner strategy is {m10.runner.strategy!r}, not hybrid")
+    texts10, _ = make_corpus(langs10, 2000, seed=44)
+    (tmp / "texts_m10.json").write_text(json.dumps(texts10))
+    np.save(tmp / "ids_m10.npy", m10.runner.predict_ids([t.encode() for t in texts10]))
+    m10.save(str(tmp / "m10"))
+    # A dense hashed table (2^16 buckets x 176 languages; n = 1..5 so that
+    # enough buckets are learned for the dense form) for mesh:vocab.
+    mv = (LanguageDetector(langs, [1, 2, 3, 4, 5], 400, device=str(dev))
+          .set_vocab_mode("hashed").set_hash_bits(MESH_VOCAB_BITS).set_fit_backend("device")
+          .fit(case5.table))
+    w, lut, _ = mv.profile.device_membership(device="cpu")
+    if lut is not None:
+        fail("mesh: the mesh:vocab model's device form is not the dense table")
+    vdocs = [t.encode() for t in texts5[:MESH_VOCAB_DOCS]]
+    np.save(tmp / "vocab_ref.npy", BatchRunner(weights=w, lut=None, spec=mv.profile.spec,
+                                               device=dev, strategy="gather").score(vdocs))
+    mv.save(str(tmp / "mv"))
+    long_doc = " ".join(texts5[:400]).encode()[:MESH_LONG_DOC_BYTES]
+    (tmp / "long_doc.bin").write_bytes(long_doc)
+    w5, lut5, _ = model5.profile.device_membership(device=str(dev))
+    np.save(tmp / "long_ref.npy", score_long_document(long_doc, w5, lut5, model5.profile.spec,
+                                                      build_mesh(device=dev)))
+    say("mesh", f"references on one device in {time.perf_counter() - t_setup:.1f}s: "
+        f"fit5 (device fit, warm) {fit5_s:.3f}s; {len(texts5)} config-5, {len(case3.texts)} "
+        f"config-3 and {len(texts10)} 10-language (exact n = 1..5) docs, {len(seg_texts)} "
+        f"code-switched, a "
+        f"{len(long_doc)}-byte document")
+
+    results = {}
+    for world in (1, 2):
+        t0 = time.perf_counter()
+        outs = run_mesh_children(tmp, world, dev.type)
+        wall = time.perf_counter() - t0
+        results[world] = outs
+        r0 = outs[0]
+        backends = {o["backend"] for o in outs}
+        say("mesh", f"{world} rank(s) ({', '.join(sorted(backends))}"
+            f"{', NCCL ' + r0['nccl'] if 'nccl' in r0 else ''}) in {wall:.1f}s: sharded fit "
+            f"{dict(r0['fit_mesh'])} first {r0['fit_s'][0]:.3f}s, warm {r0['fit_s'][1]:.3f}s "
+            f"(profile bit-identical to fit5: {all(o['fit_bit_identical'] for o in outs)}); "
+            f"config-5 labels identical through fused_detect on mesh {r0['mesh']}, "
+            f"{r0['transform_docs']} docs warm {r0['transform_docs'] / r0['transform_s'][1]:.0f} "
+            f"docs/s; segment spans, config-3 and 10-language (hybrid) labels "
+            f"identical; mesh:vocab {r0['vocab_mesh']} ({r0['vocab_strategy']}) max |err| "
+            f"{max(o['vocab_max_abs_err'] for o in outs):.3g}; long document psum == ring, "
+            f"{max(o['long_doc_err'] for o in outs):.3g} from one device; launches "
+            f"{[o['launches'] for o in outs]}")
+        if world == 1 and dev.type == "cuda" and backends != {"nccl"}:
+            fail(f"mesh: the one-rank group's backend is {backends}, expected nccl")
+        if world == 2 and backends != {"gloo"}:
+            fail(f"mesh: two ranks on one card run {backends}, expected gloo")
+    one, two = results[1][0], results[2][0]
+    say("mesh", f"sharded fit warm: 1 rank {one['fit_s'][1]:.3f}s, 2 ranks "
+        f"{two['fit_s'][1]:.3f}s against fit5's {fit5_s:.3f}s on one device; transform docs/s "
+        f"(warm): 1 rank {one['transform_docs'] / one['transform_s'][1]:.0f}, 2 ranks sharing "
+        f"the card {two['transform_docs'] / two['transform_s'][1]:.0f} — two ranks on one "
+        f"card measure no scaling ({smi_line})")
+    captures = sorted(tmp.glob("mesh*_r*.jsonl"))
+    launches = capture_launches(captures)
+    if len(captures) != 3 or any(launches.get(k, 0) <= 0 for k in MESH_KERNELS):
+        fail(f"mesh: the children's captures {len(captures)} counted launches {launches}")
+    return launches
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--quick", action="store_true",
@@ -5116,9 +5444,13 @@ def main() -> None:
                     "whose source it holds (same C entry point) is built from it and timed "
                     "in turns with this checkout's; repeatable")
     ap.add_argument("--cold-load", metavar="SPEC", help=argparse.SUPPRESS)
+    ap.add_argument("--mesh-rank", nargs=2, metavar=("SPEC", "RANK"), help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.cold_load:  # phase 22's fresh process
         cold_load_child(args.cold_load)
+        return
+    if args.mesh_rank:  # one rank of phase 24
+        mesh_child(args.mesh_rank[0], int(args.mesh_rank[1]))
         return
 
     if not (ROOT / "spark_languagedetector_tpu_torch" / "__init__.py").is_file():
@@ -5212,10 +5544,14 @@ def main() -> None:
         del zoo_state
         with phase_clock("scale"):
             scale_launches = phase_scale(torch, dev, model, main_docs, dirs, arts, tmp, smi_line)
+    with tempfile.TemporaryDirectory(prefix="mesh_smoke_") as tmp, phase_clock("mesh"):
+        mesh_launches = phase_mesh(torch, dev, model, main_docs, main_ids, fit5_case, fit5_model,
+                                   model3, fit3_case, tmp, smi_line)
     segment_entry["launches"] += (fleet_launches["fused_segment"] + observe_launches["fused_segment"]
-                                  + cold_launches["fused_segment"] + scale_launches["fused_segment"])
+                                  + cold_launches["fused_segment"] + scale_launches["fused_segment"]
+                                  + mesh_launches["fused_segment"])
     for entry in hist_entries:
-        entry["launches"] += observe_launches.get(entry["name"], 0)
+        entry["launches"] += observe_launches.get(entry["name"], 0) + mesh_launches[entry["name"]]
     bad = [k for k in ("jax", "jaxlib", "spark_languagedetector_tpu") if k in sys.modules]
     if bad:
         fail(f"JAX modules were imported: {bad}")
@@ -5229,7 +5565,8 @@ def main() -> None:
         "launches": (launches + stream_launches + refit_launches
                      + fleet_launches["fused_detect"] + storm_launches["fused_detect"]
                      + zoo_launches["fused_detect"] + observe_launches["fused_detect"]
-                     + cold_launches["fused_detect"] + scale_launches["fused_detect"]),
+                     + cold_launches["fused_detect"] + scale_launches["fused_detect"]
+                     + mesh_launches["fused_detect"]),
         "max_abs_err": max(kernel_err, c5_err),
         **times,
     }, segment_entry] + hist_entries}))

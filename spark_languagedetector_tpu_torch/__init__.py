@@ -17,6 +17,12 @@ so either package loads what the other saved.
 
 Entry points run on the CUDA card unless given ``device="cpu"``, where the
 kernels' plain PyTorch versions run; with no device and no card they raise.
+
+Multi-process runs call ``init_distributed(...)`` once per process (the
+``LANGDETECT_TPU_COORDINATOR`` / ``_NUM_PROCESSES`` / ``_PROCESS_ID`` knobs
+or arguments; see :func:`.parallel.distributed.initialize`); after it,
+``device="mesh"`` transforms and ``fitBackend="device"`` fits span every
+rank of the group. It is a no-op in a single process.
 """
 
 from .api.pipeline import Pipeline, PipelineModel
@@ -26,6 +32,16 @@ from .models.language import ISO_LANGUAGE_CODES, Language
 from .models.preprocessing import LowerCasePreprocessor, SpecialCharPreprocessor
 
 __version__ = "0.1.0"
+
+
+def __getattr__(name):
+    # Loaded on first use, as the JAX package exports it.
+    if name == "init_distributed":
+        from .parallel.distributed import initialize
+
+        return initialize
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
 
 __all__ = [
     "ISO_LANGUAGE_CODES",
@@ -38,4 +54,5 @@ __all__ = [
     "Schema",
     "SpecialCharPreprocessor",
     "Table",
+    "init_distributed",
 ]

@@ -74,7 +74,22 @@ Every ``score``/``predict_ids`` call runs under
 set), and the first call of each runner records the roofline cost gauges
 of :mod:`..telemetry.cost` on a background thread (``_cost_thread``).
 
-Not ported yet: the mesh branches (ROADMAP Queue 1 item 6).
+On a mesh (``mesh=``, a :class:`~..parallel.mesh.Mesh` of process-group
+ranks; :func:`resolve_mesh`), every rank calls with the same documents and
+runs the same plan. Each planned batch is padded with empty rows to a
+multiple of the data axis (``parallel.mesh.pad_rows_for_mesh``); each rank
+packs, copies and scores its data shard of the rows with the strategy's
+own kernels, and an ``all_gather`` over the data axis gives every rank the
+whole batch's result before the fetch, so every rank returns every
+document's answer (JAX's ``process_allgather``). The ragged and wire forms
+are off there (a ``DocBlock`` input is materialized), one dispatch thread
+keeps the collectives in one order on every rank, and on a mesh of more
+than one rank a failure replays under the policy on every rank alike and
+never takes the ladder, which one rank alone would take. The vocab axis
+stripes the dense weight table of the ``gather`` strategy only (``auto``
+picks it on a vocab mesh with a dense table): each vocab rank gathers its
+stripe's rows and a ``psum`` over the vocab line sums the parts; every
+other form is replicated over the vocab axis.
 """
 
 from __future__ import annotations
@@ -131,6 +146,49 @@ from ..utils.metrics import Metrics
 from ..utils.profiling import trace
 
 _log = get_logger("api.runner")
+
+MESH_BACKENDS = ("mesh", "mesh:vocab")
+
+
+def resolve_mesh(backend: str, table_bytes: int | None = None):
+    """The mesh for a ``device`` value of ``"mesh"`` or ``"mesh:vocab"``
+    over every rank of the initialised process group (a one-rank mesh
+    without one), or None for any other value.
+
+    ``"mesh"`` is data-parallel. ``"mesh:vocab"`` carves a vocab axis so
+    the dense weight table stripes instead of replicating: the smallest
+    power of two whose per-rank stripe fits the replication budget
+    (``table_bytes`` hint; 2 when unknown), capped at the rank count, the
+    rest data-parallel — JAX's ``resolve_mesh`` over ranks for devices."""
+    from ..models.profile import DENSE_TABLE_BUDGET_BYTES
+    from ..parallel.distributed import process_count
+    from ..parallel.mesh import build_mesh
+
+    n = process_count()
+    if backend == "mesh:vocab":
+        vocab = 2
+        if table_bytes is not None:
+            while vocab * 2 <= n and table_bytes / vocab > DENSE_TABLE_BUDGET_BYTES:
+                vocab *= 2
+        vocab = min(vocab, n)
+        return build_mesh(data=n // vocab, vocab=vocab)
+    if backend == "mesh":
+        return build_mesh(data=n, vocab=1)
+    return None
+
+
+def resolve_fit_mesh():
+    """The mesh of ``fitBackend="device"``: every rank of the initialised
+    process group on the data axis (one rank included, whose collectives
+    are then real calls), or None without a group — one policy site shared
+    with :func:`resolve_mesh`, as in JAX."""
+    import torch.distributed as dist
+
+    from ..parallel.mesh import build_mesh
+
+    if not (dist.is_available() and dist.is_initialized()):
+        return None
+    return build_mesh(data=dist.get_world_size(), vocab=1)
 
 DEFAULT_BATCH_SIZE = 256
 # The fused and pallas kernels keep per-document state on chip (no
@@ -195,7 +253,9 @@ class BatchRunner:
 
     ``weights`` / ``lut`` / ``cuckoo`` are the profile's membership
     (``GramProfile.device_membership``; arrays may be numpy or tensors).
-    ``device`` None means the CUDA card and raises when there is none. After
+    ``device`` None means the CUDA card and raises when there is none;
+    ``mesh`` (not with ``device``) runs on that mesh's ranks, each on its
+    own device, as the module docstring says. After
     construction the strategy's device operands are built once: for
     ``fused``, ``table`` / ``scales`` / ``table_lut`` in the
     :func:`~..ops.score_fused.build_fused_tables` layout ``layout``; for the
@@ -240,9 +300,21 @@ class BatchRunner:
     breaker: CircuitBreaker | None = None
     degraded_fallback: bool | None = None
     dedup: bool | None = None
+    mesh: object | None = None
     metrics: Metrics = field(default_factory=Metrics)
 
     def __post_init__(self):
+        self._ndata, self._striped, self._multiproc = 1, False, False
+        if self.mesh is not None:
+            if self.device is not None:
+                raise ValueError("pass either device or mesh, not both")
+            from ..parallel.mesh import DATA_AXIS
+
+            self.device = self.mesh.device
+            self._ndata = int(self.mesh.shape[DATA_AXIS])
+            # A failure one rank alone falls back from would break the
+            # collective order.
+            self._multiproc = self.mesh.size > 1
         self.device = resolve_device(self.device)
         # Created first: the lazily built operands resolve through it.
         self._state_lock = threading.Lock()
@@ -262,6 +334,8 @@ class BatchRunner:
             self.dedup = bool(exec_config.resolve("dedup"))
         if self.device_encode is None:
             self.device_encode = bool(exec_config.resolve("device_encode"))
+        if self.mesh is not None:
+            self.device_encode = False
         # True while the last dispatch rode the degradation ladder; drives
         # the langdetect_degraded gauge's reset on fast-path recovery.
         self._degraded_mode = False
@@ -312,12 +386,23 @@ class BatchRunner:
         )
         hybrid_ok = self._hybrid_supported()
         self.hist_state = None
-        if self.strategy == "auto":
+        stripes = (
+            self.mesh is not None
+            and int(self.mesh.shape["vocab"]) > 1
+            and lut is None
+            and self.cuckoo is None
+            and w.shape[0] == self.spec.id_space_size
+        )
+        if self.strategy == "auto" and stripes and self.quantization is None:
+            self.strategy = "gather"
+            self.strategy_reason = "vocab mesh over a dense table ⇒ striped gather"
+        elif self.strategy == "auto":
             self.strategy, self.strategy_reason = self._auto_select(
                 w, lut, fused_ok, pallas_ok, hybrid_ok
             )
         else:
             self.strategy_reason = "explicit"
+        self._striped = stripes and self.strategy == "gather"
         if self.strategy in ("hybrid", "hist") and self.hist_state is None:
             self.hist_state = self._build_hist_state(w, lut)
         for name, ok, need in (
@@ -348,6 +433,7 @@ class BatchRunner:
             _log, "runner.strategy", strategy=self.strategy,
             reason=self.strategy_reason, device=str(self.device),
             quantization=self.quantization,
+            mesh=None if self.mesh is None else dict(self.mesh.shape),
         )
         # The one-time packer build happens here, not inside the first
         # call's hot loop.
@@ -470,6 +556,11 @@ class BatchRunner:
                 t for t in (self.hist_state.weights_pad, self.hist_state.bucket,
                             self.hist_state.lut) if t is not None
             ]
+        elif self._striped:
+            from ..parallel.sharded import stripe_operands
+
+            self.table, self.table_lut = stripe_operands(self.mesh, w)
+            held += [self.table, self.table_lut]
         elif self.strategy in ("hybrid", "gather"):
             self.table = upload(w, dev)
             held.append(self.table)
@@ -582,6 +673,13 @@ class BatchRunner:
                 gram_lengths_subset=subset,
             )
         block = self.block if subset is None else min(self.block, 256)
+        if self._striped:
+            from ..parallel.sharded import striped_scores
+
+            return striped_scores(
+                self.mesh, batch, lengths, self.table, self.table_lut, spec=self.spec,
+                block=block, window_limit=window_limit,
+            )
         if self.cuckoo is not None:
             return score_ops.score_batch_cuckoo(
                 batch, lengths, self.table, self._cuckoo_entries,
@@ -701,7 +799,10 @@ class BatchRunner:
                 batch, lengths, self.table, self.scales, self.table_lut, window_limit,
                 spec=self.spec, layout=self.layout, cell=cell,
             )
-        return self._window_scores_device(batch, lengths, window_limit, cell)
+        cells = self._window_scores_device(batch, lengths, window_limit, cell)
+        if self._striped:
+            cells = self.mesh.psum(cells, "vocab")
+        return cells
 
     def _dispatch_device(self, batch, lengths, window_limit, labels: bool = False):
         """One batch on the device through the strategy: f32 [B, L] scores,
@@ -803,9 +904,9 @@ class BatchRunner:
         copy's event has synchronized, else a synchronous copy. Every result
         byte the runner pulls off the device goes through here
         (``score/fetch_bytes``): a label request fetches 4·B bytes of ids
-        plus the chunked documents' few score rows, on every rung."""
-        # A multi-process mesh assembles a result with process_allgather
-        # here in the JAX runner: ROADMAP Queue 1 item 6.
+        plus the chunked documents' few score rows, on every rung. On a mesh
+        the tensor already holds the whole batch (the dispatch gathered it
+        over the data axis), so every rank fetches every row."""
         if started is None:
             started = copy_to_host_async(arr)
         host = host_numpy(started)
@@ -824,6 +925,18 @@ class BatchRunner:
             except Exception:
                 out.append(None)
         return out
+
+    def _mesh_rows(self, batch_docs, limit_np):
+        """This rank's data shard of a batch on a mesh: the documents and
+        window limits, padded with empty rows to a multiple of the data
+        axis, then cut to the rank's rows (JAX ``pad_rows_for_mesh``; pad
+        rows score nothing and are dropped after the gather)."""
+        from ..parallel.mesh import pad_rows_for_mesh
+
+        limits = np.full(len(batch_docs), self.max_chunk, np.int32) if limit_np is None else limit_np
+        docs, limits = pad_rows_for_mesh(list(batch_docs), self._ndata, (limits, self.max_chunk))
+        shard_limits = self.mesh.shard_rows(limits)
+        return self.mesh.shard_rows(docs), None if limit_np is None else shard_limits
 
     def _fence(self, t) -> None:
         """Wait for the device work queued so far (a ladder rung counts as
@@ -937,6 +1050,11 @@ class BatchRunner:
 
     def _execute_traced(self, byte_docs, *, want_labels: bool):
         block = byte_docs if isinstance(byte_docs, DocBlock) else None
+        if block is not None and self.mesh is not None:
+            # A mesh shards padded rows: block inputs materialize (exact,
+            # not zero-copy), as in JAX.
+            byte_docs = [block.doc(i) for i in range(len(block))]
+            block = None
         inverse = None
         if block is not None:
             doc_starts = block.starts()
@@ -1024,7 +1142,7 @@ class BatchRunner:
             for edge, cnt in zip(*np.unique(edges, return_counts=True)):
                 REGISTRY.incr(f"exec/len/{int(edge)}", int(cnt))
         use_encode = self.device_encode or block is not None
-        ladder = self._ladder_allowed()
+        ladder = self._ladder_allowed() and not self._multiproc
 
         # Chunked docs (len > max_chunk) need their full score rows fetched
         # and summed across chunks before the argmax; every other doc
@@ -1127,17 +1245,32 @@ class BatchRunner:
             limit_np = self._limit_np(limits_arr[sel])
             real_bytes = sum(map(len, batch_docs))
 
-            def observe_fill(capacity: int, index_bytes: int) -> None:
-                fill = real_bytes / capacity if capacity else 1.0
+            def observe_fill(capacity: int, index_bytes: int, real: int = real_bytes,
+                             docs: int = rows) -> None:
+                fill = real / capacity if capacity else 1.0
                 REGISTRY.observe("score/batch_fill_ratio", fill)
                 REGISTRY.observe("score/padding_waste", 1.0 - fill)
-                REGISTRY.incr("score/real_bytes", real_bytes)
+                REGISTRY.incr("score/real_bytes", real)
                 REGISTRY.incr("score/capacity_bytes", capacity)
                 REGISTRY.incr("score/wire_bytes", capacity + index_bytes)
-                REGISTRY.incr("score/wire_docs", rows)
+                REGISTRY.incr("score/wire_docs", docs)
 
-            # The JAX runner's mesh branch ships padded only: ROADMAP
-            # Queue 1 item 6.
+            if self.mesh is not None:
+                # The padded form of this rank's shard; the result gathered
+                # over the data axis is the whole batch's.
+                shard, shard_limit = self._mesh_rows(batch_docs, limit_np)
+                # This rank's own copy: its shard's bytes.
+                observe_fill(len(shard) * pad_to, 4 * len(shard),
+                             sum(map(len, shard)), len(shard))
+                with span("score/pack", parent=score_span, rows=len(shard), pad_to=pad_to):
+                    st = self._stage_padded(shard, pad_to, shard_limit)
+                with span("score/dispatch", parent=score_span, rows=len(shard),
+                          pad_to=pad_to, shards=self._ndata) as sp:
+                    dev = st.to_device()
+                    local = dispatch(dev["batch"], dev["lengths"], dev.get("limit"), sel, False)
+                    result = self.mesh.all_gather(local, "data")
+                    sp.fence(result)
+                return result
             ragged = ragged_fit(batch_docs, pad_to)
             if ragged is not None:
                 rows_flat, step = ragged
@@ -1227,6 +1360,8 @@ class BatchRunner:
         if workers is None:
             workers = DISPATCH_WORKERS
         workers = max(1, min(int(workers), len(plan)))
+        if self.mesh is not None:
+            workers = 1  # one thread keeps every rank's collectives in one order
         call_retries: list[int] = []
         # One request trace per call (an ambient one is joined); every span
         # below, the dispatch workers' included, stamps its id.
@@ -1427,7 +1562,7 @@ class BatchRunner:
                     takes.append(n_cells - off)
         limits_arr = np.asarray(limits, dtype=np.int64)
         plan = self.plan([len(c) for c in chunks])
-        ladder = self._ladder_allowed(segment=True)
+        ladder = self._ladder_allowed(segment=True) and not self._multiproc
 
         def on_retry(attempt_no, delay_s, exc):
             self.metrics.incr("retries")
@@ -1440,14 +1575,18 @@ class BatchRunner:
         def build_and_dispatch(sel, pad_to):
             batch_docs = [chunks[k] for k in sel]
             limit_np = self._limit_np(limits_arr[sel])
-            with span("score/pack", parent=seg_span, rows=len(sel), pad_to=pad_to):
+            if self.mesh is not None:
+                batch_docs, limit_np = self._mesh_rows(batch_docs, limit_np)
+            with span("score/pack", parent=seg_span, rows=len(batch_docs), pad_to=pad_to):
                 st = self._stage_padded(batch_docs, pad_to, limit_np)
-            with span("score/dispatch", parent=seg_span, rows=len(sel),
+            with span("score/dispatch", parent=seg_span, rows=len(batch_docs),
                       pad_to=pad_to) as sp:
                 dev = st.to_device()
                 cells = self._segment_dispatch_device(
                     dev["batch"], dev["lengths"], dev.get("limit"), cell
                 )
+                if self.mesh is not None:
+                    cells = self.mesh.all_gather(cells, "data")
                 sp.fence(cells)
             return owned(sel, cells)
 
@@ -1473,6 +1612,8 @@ class BatchRunner:
         if workers is None:
             workers = DISPATCH_WORKERS
         workers = max(1, min(int(workers), len(plan)))
+        if self.mesh is not None:
+            workers = 1
         with trace_request(), self.metrics.timer("score_s"), span(
             "score", docs=N_in, unique=len(byte_docs), batches=len(plan),
             strategy=self.strategy, segment=True, cell=cell,

@@ -3,8 +3,7 @@
 Port of ``spark_languagedetector_tpu.exec.config``. The table holds the
 knobs a module of the port reads, under the JAX package's names, env
 spellings, types and defaults, so one environment configures both packages
-alike. The JAX package's multi-process knobs come with the module that will
-read them.
+alike; ``parallel.distributed.initialize`` reads the multi-process ones.
 
 Every knob resolves here, once, with type validation and a single
 precedence rule:
@@ -253,6 +252,13 @@ KNOBS: dict[str, Knob] = _knobs(
          "roofline bytes/s anchor override"),
     Knob("loglevel", "LANGDETECT_TPU_LOGLEVEL", "str", None,
          "package log level"),
+    # --- multi-process bring-up (parallel.distributed.initialize) ---------
+    Knob("tpu_coordinator", "LANGDETECT_TPU_COORDINATOR", "str", None,
+         "process-group address (tcp://host:port or file://path)"),
+    Knob("tpu_num_processes", "LANGDETECT_TPU_NUM_PROCESSES", "int", None,
+         "process-group world size", positive=True),
+    Knob("tpu_process_id", "LANGDETECT_TPU_PROCESS_ID", "int", None,
+         "this process's rank in the group"),
     # --- tuning profile ---------------------------------------------------
     Knob("tuning_profile", PROFILE_ENV, "str", None,
          "path to a tuning profile JSON (exec.profile)"),

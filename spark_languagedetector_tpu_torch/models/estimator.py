@@ -21,10 +21,18 @@ and stamps ``calibrated: false`` on every result.
 
 Where the JAX package had a ``backend`` switch, the port has ``device``:
 None means the CUDA card (and raises when there is none); ``"cpu"`` runs
-the plain PyTorch versions. ``model.write().save(path)`` and
-``LanguageDetectorModel.load`` use the JAX package's directory layout
-(:mod:`..persist.io`), so a model saved by either package loads in the
-other, its calibration included.
+the plain PyTorch versions; ``"mesh"`` and ``"mesh:vocab"`` keep JAX's
+meaning over the ranks of the initialised process group
+(``init_distributed``): transform shards its batches over every rank
+(``api.runner.resolve_mesh``), and ``"mesh:vocab"`` also stripes a dense
+weight table, whose budget widens by the mesh size. ``fitBackend="device"``
+fits over ``api.runner.resolve_fit_mesh()``, every rank of the group (a
+single device without one). As in JAX, every rank passes the same table to
+``fit`` and ``transform`` and gets the whole profile and every label.
+
+``model.write().save(path)`` and ``LanguageDetectorModel.load`` use the JAX
+package's directory layout (:mod:`..persist.io`), so a model saved by
+either package loads in the other, its calibration included.
 """
 
 from __future__ import annotations
@@ -36,7 +44,7 @@ from typing import Sequence
 import numpy as np
 
 from ..api.params import HasInputCol, HasLabelCol, HasOutputCol, Param
-from ..api.runner import BatchRunner
+from ..api.runner import MESH_BACKENDS, BatchRunner, resolve_fit_mesh, resolve_mesh
 from ..api.table import STRING, Schema, Table, require_string_column
 from ..ops import fit as fit_ops
 from ..ops.encoding import LOW_BYTE, UTF8, texts_to_bytes
@@ -86,6 +94,18 @@ def _valid_device(v) -> bool:
     return v is None or isinstance(v, str)
 
 
+def session_device(value):
+    """The torch device a ``device`` param value runs this process on: a
+    mesh value (``"mesh"``, ``"mesh:vocab"``) means this rank's device (the
+    card without a process group); anything else as ``resolve_device``
+    reads it."""
+    if value in MESH_BACKENDS:
+        from ..parallel.distributed import rank_device
+
+        value = rank_device()
+    return resolve_device(value)
+
+
 class _ResultModeParams:
     """Segmentation result-type params, shared by estimator and model."""
 
@@ -115,8 +135,10 @@ class _DeviceParam:
     device = Param(
         "device",
         "torch device transform runs on: None ⇒ the CUDA card (an error "
-        "when none is visible), 'cpu' ⇒ the plain PyTorch versions, or "
-        "any torch device string such as 'cuda:1'. A property of the "
+        "when none is visible), 'cpu' ⇒ the plain PyTorch versions, "
+        "any torch device string such as 'cuda:1', or 'mesh' | 'mesh:vocab' "
+        "(every rank of the process group; 'mesh:vocab' also stripes a "
+        "dense weight table over a vocab axis). A property of the "
         "session, not of the stage: persistence does not save it, so a "
         "loaded model runs on the card unless its loader names a device",
         _valid_device,
@@ -295,7 +317,7 @@ class LanguageDetector(_DetectorParams):
         # The model (and a device fit) runs where the estimator says;
         # resolving here makes a machine without a card fail before the
         # fit, not after it.
-        device = resolve_device(self.get("device"))
+        device = session_device(self.get("device"))
         label_col, input_col = self.get_label_col(), self.get_input_col()
         supported = list(self.get("supportedLanguages"))
         labels = dataset.column(label_col)
@@ -398,7 +420,9 @@ class LanguageDetector(_DetectorParams):
 
         split = spec.mode == EXACT and max(spec.gram_lengths) > MAX_DEVICE_ID_GRAM_LEN
         fit = fit_profile_device_split if split else fit_profile_device
-        return fit(*args, batch_rows=self.get("fitBatchRows"), device=device)
+        mesh = resolve_fit_mesh()
+        return fit(*args, batch_rows=self.get("fitBatchRows"),
+                   device=device if mesh is None else None, mesh=mesh)
 
     def _build_model(self, profile: GramProfile) -> "LanguageDetectorModel":
         """Profile → configured model (the estimator stamps its params)."""
@@ -567,20 +591,46 @@ class LanguageDetectorModel(HasInputCol, HasOutputCol, _ResultModeParams, _Devic
             # baked artifact's loader attached them already mapped: when
             # they were built under the dense budget used here, the runner
             # reads the mapped views and nothing is rebuilt.
+            device = self.get("device")
+            # A mesh value starts from the data-parallel mesh; 'mesh:vocab'
+            # carves a vocab axis only when the dense table is the device
+            # form (a LUT or cuckoo profile has nothing to stripe, and a
+            # smaller data axis would only repeat work), and a stripe makes
+            # the dense form affordable at the mesh size x the budget.
+            mesh = resolve_mesh("mesh") if device in MESH_BACKENDS else None
+            budget = DENSE_TABLE_BUDGET_BYTES
+            if device == "mesh:vocab":
+                budget *= mesh.size
             prebuilt = getattr(self, "_prebuilt_membership", None)
-            if (prebuilt is not None
-                    and prebuilt["dense_budget_bytes"] == DENSE_TABLE_BUDGET_BYTES):
+            if (prebuilt is not None and mesh is None
+                    and prebuilt["dense_budget_bytes"] == budget):
                 weights, lut, cuckoo = (
                     prebuilt["weights"], prebuilt["lut"], prebuilt["cuckoo"]
                 )
             else:
-                weights, lut, cuckoo = self.profile.device_membership(device="cpu")
+                weights, lut, cuckoo = self.profile.device_membership(
+                    device="cpu", dense_budget_bytes=budget
+                )
+            if device == "mesh:vocab":
+                if (lut is None and cuckoo is None
+                        and weights.shape[0] == self.profile.spec.id_space_size):
+                    mesh = resolve_mesh(
+                        "mesh:vocab",
+                        table_bytes=int(weights.numel() * weights.element_size()),
+                    )
+                else:
+                    log_event(
+                        _log, "mesh_vocab.fallback_data_parallel",
+                        reason="device form is compact (cuckoo/LUT); the vocab "
+                        "axis would stripe nothing",
+                    )
             self._runner = BatchRunner(
                 weights=weights,
                 lut=lut,
                 cuckoo=cuckoo,
                 spec=self.profile.spec,
-                device=self.get("device"),
+                device=None if mesh is not None else device,
+                mesh=mesh,
                 batch_size=self.get("batchSize"),
                 quantization=self.get("quantization"),
                 max_score_bytes=self.get("maxScoreBytes"),

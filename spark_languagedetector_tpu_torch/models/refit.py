@@ -1,6 +1,6 @@
 """Incremental refit: the count table as a persisted sufficient statistic.
 
-Port of ``spark_languagedetector_tpu.models.refit`` (single device).
+Port of ``spark_languagedetector_tpu.models.refit``.
 
 The device fit is count then reduce, and the int32 count table is a
 sufficient statistic for the whole model: weighting, top-k and the profile
@@ -20,6 +20,17 @@ resume token ``committed`` (how many source batches the table holds).
 :mod:`..persist.io` (the JAX package's layout: a state saved by either
 package loads in the other); the token rides inside the state, so counts
 and token never commit separately.
+
+On a mesh (``mesh=``; :meth:`FitAccumulator.for_estimator` and
+:meth:`~FitAccumulator.load` resolve the fit mesh, ``resolve_fit_mesh``,
+as JAX does) every rank updates with the same batches and keeps its own
+table of its data shards' counts; a finalize sums the tables into new
+tensors (``parallel.sharded.reduce_counts``) and never into a rank's own,
+so updates and finalizes may alternate. A loaded state goes into the
+tables of the ranks at data coordinate 0, so the sum holds it once.
+``save`` writes the summed table: every rank sums it, rank 0 writes, and
+the others wait at a barrier until the file is there (the JAX package
+saves from one process and has no rule of its own for this).
 
 The streaming loop that feeds this from a source and pushes refits
 through the serving registry's hot swap is :mod:`..stream.refit`.
@@ -52,8 +63,8 @@ class FitAccumulator:
     Supported specs are the ones one dense table can hold: hashed vocabs
     (any gram lengths) and exact vocabs with gram lengths up to
     ``MAX_DEVICE_ID_GRAM_LEN``. The exact long-gram split fit has no
-    one-table statistic, so it is refused. ``mesh`` is not supported yet:
-    the table lives on one device.
+    one-table statistic, so it is refused. With ``mesh`` the table lives
+    on the mesh's device, one per rank (see the module docstring).
     """
 
     def __init__(
@@ -70,11 +81,6 @@ class FitAccumulator:
         device=None,
         mesh=None,
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "the port's FitAccumulator keeps its count table on one device; "
-                "a mesh-sharded accumulator is not ported yet"
-            )
         if spec.mode == EXACT and max(spec.gram_lengths) > MAX_DEVICE_ID_GRAM_LEN:
             raise ValueError(
                 "incremental refit needs a single dense count table; exact "
@@ -90,7 +96,8 @@ class FitAccumulator:
         self.label_col = label_col
         self.input_col = input_col
         self.batch_rows = batch_rows
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else resolve_device(device)
         self._lang_to_idx = {l: i for i, l in enumerate(self.languages)}
         self.counts = torch.zeros(
             (spec.id_space_size, len(self.languages)), dtype=torch.int32, device=self.device
@@ -108,7 +115,12 @@ class FitAccumulator:
     def for_estimator(cls, estimator, mesh=None) -> "FitAccumulator":
         """Accumulator configured exactly like ``estimator.fit`` would fit
         (spec, languages, weight mode, profile size, encoding, batch rows,
-        device)."""
+        device); ``mesh`` None resolves the fit mesh the device fit uses
+        (None without a process group)."""
+        from ..api.runner import resolve_fit_mesh
+        from .estimator import session_device
+
+        mesh = mesh if mesh is not None else resolve_fit_mesh()
         return cls(
             estimator._vocab_spec(),
             list(estimator.get("supportedLanguages")),
@@ -118,17 +130,21 @@ class FitAccumulator:
             label_col=estimator.get_label_col(),
             input_col=estimator.get_input_col(),
             batch_rows=estimator.get("fitBatchRows"),
-            device=estimator.get("device"),
+            device=None if mesh is not None else session_device(estimator.get("device")),
             mesh=mesh,
         )
 
     @classmethod
     def load(cls, path, *, device=None, mesh=None) -> "FitAccumulator":
         """Restore a persisted accumulator (either package's save) onto
-        ``device`` (None: the CUDA card): the sparse rows scatter back into
-        a fresh dense table there; the resume token comes along."""
+        ``device`` (None: the CUDA card), or over the fit mesh (``mesh``
+        None with no ``device`` resolves it): the sparse rows scatter back
+        into a fresh dense table there; the resume token comes along."""
+        from ..api.runner import resolve_fit_mesh
         from ..persist.io import load_fit_state
 
+        if mesh is None and device is None:
+            mesh = resolve_fit_mesh()
         state = load_fit_state(path)
         acc = cls(
             state["spec"],
@@ -142,7 +158,7 @@ class FitAccumulator:
             device=device,
             mesh=mesh,
         )
-        if len(state["ids"]):
+        if len(state["ids"]) and (acc.mesh is None or acc.mesh.coord("data") == 0):
             if int(state["rows"].max(initial=0)) > np.iinfo(np.int32).max:
                 raise ValueError(
                     "persisted counts exceed int32 — this accumulator "
@@ -204,7 +220,7 @@ class FitAccumulator:
             self.counts = accumulate_counts(
                 self.counts, byte_docs, lang_arr,
                 spec=self.spec, num_langs=len(self.languages),
-                batch_rows=self.batch_rows,
+                batch_rows=self.batch_rows, mesh=self.mesh,
             )
         self._poisoned = False
         self.committed += 1
@@ -234,15 +250,21 @@ class FitAccumulator:
             num_langs=len(self.languages),
             profile_size=self.profile_size,
             weight_mode=self.weight_mode,
+            mesh=self.mesh,
         )
 
     # ----------------------------------------------------------- persistence --
     def nonzero_rows(self) -> tuple[np.ndarray, np.ndarray]:
-        """(ids int64 [R], counts int64 [R, L]) of the occurring rows:
-        occurrence is decided on the device and only those rows are copied
-        to the host."""
-        ids = torch.nonzero((self.counts != 0).any(dim=1)).squeeze(1)
-        rows = self.counts[ids].cpu().numpy().astype(np.int64)
+        """(ids int64 [R], counts int64 [R, L]) of the occurring rows of the
+        summed table (on a mesh, every rank's tables summed): occurrence is
+        decided on the device and only those rows are copied to the host."""
+        counts = self.counts
+        if self.mesh is not None:
+            from ..parallel.sharded import reduce_counts
+
+            counts = reduce_counts(self.mesh, counts, table_sharded=False)
+        ids = torch.nonzero((counts != 0).any(dim=1)).squeeze(1)
+        rows = counts[ids].cpu().numpy().astype(np.int64)
         return ids.cpu().numpy().astype(np.int64), rows
 
     def save(self, path) -> None:
@@ -252,6 +274,9 @@ class FitAccumulator:
         from ..persist.io import save_fit_state
 
         ids, rows = self.nonzero_rows()
+        if self.mesh is not None and self.mesh.rank != self.mesh.ranks[0]:
+            self.mesh.barrier()  # rank 0 writes; wait until it has
+            return
         save_fit_state(
             path,
             spec=self.spec,
@@ -268,6 +293,8 @@ class FitAccumulator:
             ids=ids,
             rows=rows,
         )
+        if self.mesh is not None:
+            self.mesh.barrier()
 
     def matches_estimator(self, estimator) -> bool:
         """Whether this state was produced under the estimator's exact fit

@@ -20,6 +20,11 @@ Port of ``spark_languagedetector_tpu.ops.fit_pipeline``:
     of the count step. The consumer rebuilds the padded batch on the device
     (``ops.encoding.unpack_ragged``, ``ops.encode_device.encode_batch``), in
     plan order.
+  * on a mesh (``mesh=``), each planned batch is padded with empty rows to
+    a multiple of the data axis (:func:`..parallel.mesh.pad_rows_for_mesh`,
+    the multiplicity padded with 1; empty rows count nothing) and each rank
+    packs and copies only its shard of the rows, padded or ragged; the
+    wire form is off there, as in JAX;
   * :func:`resolve_fit_batching` — an explicit ``batch_rows`` (the
     estimator's ``fitBatchRows``) wins, then ``LANGDETECT_FIT_BATCH_ROWS``,
     else rows adapt per bucket under ``LANGDETECT_FIT_BATCH_BYTES``
@@ -202,6 +207,7 @@ def iter_device_batches(
     *,
     item_mult: np.ndarray | None = None,
     device: torch.device,
+    mesh=None,
 ):
     """Yield ``(batch, lengths, lang_ids, mult, rows, pad_to)`` tensors on
     ``device`` for every planned micro-batch, packing and copying ahead.
@@ -213,20 +219,35 @@ def iter_device_batches(
     the current stream, the one the count step runs on; up to
     :data:`FIT_PIPELINE_DEPTH` batches run ahead of the consumer. The
     consumer rebuilds ragged and wire batches into the padded form on the
-    device. ``mult`` is None when the plan carries no duplicates.
+    device. ``mult`` is None when the plan carries no duplicates. On a
+    ``mesh`` the tensors hold this rank's data shard of each padded batch.
     Closing the generator stops the packer.
     """
     if not plan:
         return
     device = torch.device(device)
     native.available()  # the one-time build, outside the pipelined loop
-    device_encode = bool(exec_config.resolve("device_encode"))
+    device_encode = bool(exec_config.resolve("device_encode")) and mesh is None
     staging = HostStaging(device)
     u8, i32 = np.uint8, np.int32
 
     def pack_one(planned):
         sel, pad_to = planned
         batch_docs = [items[k] for k in sel]
+        blangs = item_langs[sel]
+        bmult = None if item_mult is None else item_mult[sel]
+        if mesh is not None:
+            from ..parallel.mesh import DATA_AXIS, pad_rows_for_mesh
+
+            ndata = mesh.shape[DATA_AXIS]
+            if bmult is None:
+                batch_docs, blangs = pad_rows_for_mesh(batch_docs, ndata, (blangs, 0))
+            else:
+                batch_docs, blangs, bmult = pad_rows_for_mesh(
+                    batch_docs, ndata, (blangs, 0), (bmult, 1)
+                )
+            batch_docs, blangs = mesh.shard_rows(batch_docs), mesh.shard_rows(blangs)
+            bmult = None if bmult is None else mesh.shard_rows(bmult)
         rows = len(batch_docs)
         real_bytes = sum(len(d) for d in batch_docs)
         # The planner's chunk-split already bounds every doc <= pad_to, so
@@ -266,9 +287,9 @@ def iter_device_batches(
                 else:
                     native.pack_batch(batch_docs, pad_to, out=v["batch"],
                                       lengths_out=v["lengths"])
-                v["langs"][:] = item_langs[sel]
-                if item_mult is not None:
-                    v["mult"][:] = item_mult[sel]
+                v["langs"][:] = blangs
+                if bmult is not None:
+                    v["mult"][:] = bmult
         if form != "padded":
             REGISTRY.incr(f"fit/{'encoded' if form == 'wire' else 'ragged'}_batches")
         fill = real_bytes / capacity if capacity else 1.0

@@ -1,6 +1,6 @@
 """Device fit: dense gram counting, weighting and top-k in torch ops.
 
-Port of ``spark_languagedetector_tpu.ops.fit_tpu`` (single device). Counts
+Port of ``spark_languagedetector_tpu.ops.fit_tpu``. Counts
 accumulate in an int32 ``[V, L]`` table by ``index_put_(accumulate=True)``
 (exact in any order, so the table does not depend on batching or thread
 scheduling); weighting is ``log1p`` in float32; the per-language top-k is
@@ -18,8 +18,19 @@ The stages record the JAX package's spans: ``fit/count`` around the count
 pass (with the ``fit/count`` fault site at every count step),
 ``fit/finalize`` around the weighting and top-k, and ``fit/collect`` around
 the winners' copy to the host, whose bytes add to the ``fit/collect_bytes``
-counter and the ``langdetect_fit_collect_bytes`` gauge. The JAX package's
-mesh fit and its sharded finalize are not part of this module.
+counter and the ``langdetect_fit_collect_bytes`` gauge.
+
+On a mesh (``mesh=``, :mod:`..parallel`), as JAX's ``device_fit_context``
+sets it up: every rank plans the same batches, counts its data shard of
+each into its own table (the ``shard_step`` of
+:func:`..parallel.sharded.make_sharded_fit_step`), and the finalize sums
+the tables once (:func:`..parallel.sharded.reduce_counts`) — into one
+stripe per rank of the table axis when V divides by the shard count, and
+then takes the sharded top-k (:func:`..parallel.sharded.make_sharded_finalize_topk`);
+else into the whole table on every rank and the single-device top-k.
+Counts added outside the batches (chunk-split straddles, the caller's
+extras) go into the tables of the ranks at data coordinate 0, so the sum
+holds them once.
 """
 
 from __future__ import annotations
@@ -248,11 +259,15 @@ def accumulate_counts(
     num_langs: int,
     batch_rows: int | None = None,
     extra_counts=None,
+    mesh=None,
 ) -> torch.Tensor:
     """One pipelined counting pass on the table's device, ``counts +=
     counts(byte_docs)``: plan, pack and copy ahead (:mod:`.fit_pipeline`),
     count each batch. The windows chunk-splitting severed and the caller's
-    ``extra_counts`` (ids, langs, counts) are added once at the end.
+    ``extra_counts`` (ids, langs, counts) are added once at the end. On a
+    ``mesh`` every rank passes the same documents and counts its data
+    shard of each batch into ``counts``, its own table (see the module
+    docstring).
 
     The table is updated in place, so a pass that raises leaves it partly
     updated (the incremental refit's accumulator treats that as poisoned).
@@ -263,19 +278,31 @@ def accumulate_counts(
     items, item_langs, plan, straddle, item_mult = plan_fit_batches(
         byte_docs, lang_arr, spec, batch_rows=batch_rows
     )
+    if mesh is None:
+        step, shards = fit_dense_step, 1
+    else:
+        from ..parallel.mesh import DATA_AXIS
+        from ..parallel.sharded import make_sharded_fit_step
+
+        sharded = make_sharded_fit_step(mesh, spec, num_langs)
+        shards = int(mesh.shape[DATA_AXIS])
+
+        def step(batch, lengths, langs, acc, mult, **_):
+            return sharded(batch, lengths, langs, acc, mult, presharded=True)
+
     with span(
-        "fit/count", docs=len(byte_docs), backend="device", shards=1,
+        "fit/count", docs=len(byte_docs), backend="device", shards=shards,
         batches=len(plan),
     ) as count_span:
         batches = iter_device_batches(
-            items, item_langs, plan, item_mult=item_mult, device=device
+            items, item_langs, plan, item_mult=item_mult, device=device, mesh=mesh
         )
         # The loop's real step shapes, for the count pass's cost gauges.
         step_shapes: dict[tuple[int, int], int] = {}
         try:
             for batch, lengths, langs, mult, _, _ in batches:
                 faults.inject("fit/count")  # chaos: one call per count step
-                counts = fit_dense_step(
+                counts = step(
                     batch, lengths, langs, counts, mult, spec=spec, num_langs=num_langs
                 )
                 shape = (int(batch.shape[0]), int(batch.shape[1]))
@@ -287,6 +314,8 @@ def accumulate_counts(
         count_span.fence(counts)
     cost.record_fit_count_cost(spec, num_langs, step_shapes, platform=device.type)
     extras = [e for e in (straddle, extra_counts) if e is not None]
+    if mesh is not None and mesh.coord("data") != 0:
+        extras = []
     if extras:
         e_ids, e_langs, e_counts = (
             torch.from_numpy(np.concatenate([np.asarray(e[c], dtype=np.int64) for e in extras]))
@@ -307,6 +336,7 @@ def finalize_counts(
     num_langs: int,
     profile_size: int,
     weight_mode: str = "parity",
+    mesh=None,
 ) -> tuple[np.ndarray, np.ndarray]:
     """Count table → (sorted gram ids [G], float64 weights [G, L]).
 
@@ -317,19 +347,49 @@ def finalize_counts(
     them. The bytes that cross (the ``[L, k]`` winner ids and the winners'
     count rows, not the ``V·L·4`` table) add to the ``fit/collect_bytes``
     counter and set the ``langdetect_fit_collect_bytes`` gauge.
+
+    On a ``mesh`` ``counts`` is this rank's own table; the ranks' tables
+    are summed into new tensors first (the module docstring), so ``counts``
+    keeps only this rank's counts and a later finalize sums them again.
+    The winners' count rows come from the stripes that hold them, summed
+    over the table axis; every rank returns the same profile.
     """
     V = int(counts.shape[0])
     k = min(profile_size, V)
-    with span("fit/finalize", backend="device", k=k, vocab=V, shards=1) as fin_span:
-        if V * num_langs > TOPK_SORT_BUDGET_ELEMS:
-            top = finalize_topk_blocked(counts, weight_mode=weight_mode, k=k)
+    sharded, nshards, table = False, 1, counts
+    if mesh is not None:
+        from ..parallel import sharded as sharded_ops
+        from ..parallel.mesh import table_axis, table_shards
+
+        sharded = sharded_ops.table_is_sharded(mesh, V)
+        nshards = table_shards(mesh) if sharded else 1
+        table = sharded_ops.reduce_counts(mesh, counts, table_sharded=sharded)
+    with span("fit/finalize", backend="device", k=k, vocab=V, shards=nshards) as fin_span:
+        if sharded:
+            top = sharded_ops.make_sharded_finalize_topk(
+                mesh, profile_size=k, weight_mode=weight_mode
+            )(table)
+        elif V * num_langs > TOPK_SORT_BUDGET_ELEMS:
+            top = finalize_topk_blocked(table, weight_mode=weight_mode, k=k)
         else:
-            top = top_k_rows(masked_candidate_weights(counts, weight_mode=weight_mode), k=k)
+            top = top_k_rows(masked_candidate_weights(table, weight_mode=weight_mode), k=k)
         fin_span.fence(top)
     top_np = np.unique(top.cpu().numpy().reshape(-1))
     top_np = top_np[top_np < V]  # blocked-walk sentinels
     with span("fit/collect", winners=int(top_np.size)) as col_span:
-        counts_sel_dev = counts[torch.from_numpy(top_np).to(counts.device)]
+        sel = torch.from_numpy(top_np).to(table.device)
+        if sharded:
+            # Each rank fills the winners its stripe holds; the sum over
+            # the table axis assembles every row.
+            rows_per = int(table.shape[0])
+            off = sharded_ops.stripe_offset(mesh, rows_per)
+            mine = (sel >= off) & (sel < off + rows_per)
+            part = torch.zeros((len(top_np), num_langs), dtype=table.dtype,
+                               device=table.device)
+            part[mine] = table[sel[mine] - off]
+            counts_sel_dev = mesh.psum(part, table_axis(mesh))
+        else:
+            counts_sel_dev = table[sel]
         counts_sel = counts_sel_dev.cpu().numpy().astype(np.int64)
         collect_bytes = (
             top.numel() * top.element_size()
@@ -365,9 +425,11 @@ def fit_profile_device(
     batch_rows: int | None = None,
     extra_counts=None,
     device=None,
+    mesh=None,
 ) -> tuple[np.ndarray, np.ndarray]:
-    """Full device fit on ``device`` (None ⇒ the CUDA card): (sorted gram
-    ids [G], float64 weights [G, L]), bit-identical to the host fit.
+    """Full device fit on ``device`` (None ⇒ the CUDA card), or over
+    ``mesh`` on its ranks' devices: (sorted gram ids [G], float64 weights
+    [G, L]), bit-identical to the host fit.
 
     Counts are int32 on the device, exact up to 2^31-1 occurrences per
     (gram, language). The top-k selection runs at float32 precision, which
@@ -375,17 +437,16 @@ def fit_profile_device(
     than one f32 ulp ('counts' mode; parity weights take |L|+1 values).
     ``extra_counts`` (ids, langs, counts) are added to the table once.
     """
-    counts = torch.zeros(
-        (spec.id_space_size, num_langs), dtype=torch.int32, device=resolve_device(device)
-    )
+    dev = mesh.device if mesh is not None else resolve_device(device)
+    counts = torch.zeros((spec.id_space_size, num_langs), dtype=torch.int32, device=dev)
     counts = accumulate_counts(
         counts, byte_docs, np.asarray(lang_indices, dtype=np.int32),
         spec=spec, num_langs=num_langs, batch_rows=batch_rows,
-        extra_counts=extra_counts,
+        extra_counts=extra_counts, mesh=mesh,
     )
     return finalize_counts(
         counts, num_langs=num_langs, profile_size=profile_size,
-        weight_mode=weight_mode,
+        weight_mode=weight_mode, mesh=mesh,
     )
 
 
@@ -398,8 +459,10 @@ def fit_profile_device_split(
     weight_mode: str = "parity",
     batch_rows: int | None = None,
     device=None,
+    mesh=None,
 ) -> tuple[np.ndarray, np.ndarray]:
-    """Device fit for exact vocabs with gram lengths > 3.
+    """Device fit for exact vocabs with gram lengths > 3 (on ``device``, or
+    the low part over ``mesh``).
 
     No dense table holds the 256^4..256^5 id space, so the counts split by
     the resulting gram's length (a 2-byte document's partial window for
@@ -439,7 +502,7 @@ def fit_profile_device_split(
         extra = (e[:, 0], e[:, 1], e[:, 2])
     ids_low, w_low = fit_profile_device(
         byte_docs, lang_arr, num_langs, spec_low, profile_size, weight_mode,
-        batch_rows=batch_rows, extra_counts=extra, device=device,
+        batch_rows=batch_rows, extra_counts=extra, device=device, mesh=mesh,
     )
     gc = fit_ops.extract_gram_counts(
         byte_docs, lang_arr, num_langs, spec,

@@ -35,8 +35,9 @@ choices. Every other entry is ``site:kind[=value][@calls][%prob]``:
   * neither ``@`` nor ``%`` — fire on every call.
 
 Sites: the table :data:`SITES` is the JAX package's, whole, so a plan that
-parses in one package parses in the other and fires on the same calls. The
-port instruments these so far:
+parses in one package parses in the other and fires on the same calls.
+Every site has an ``inject()`` call in the port (the contract checker,
+:mod:`..analysis`, holds the two to each other). Among them:
 
   * ``score/dispatch`` — each padded or ragged batch's dispatch, each segment
     dispatch, and the degradation ladder's device-gather rung (it is still
@@ -50,9 +51,10 @@ port instruments these so far:
     (``error``/``delay``) and each pulled source batch (``poison``, through
     :func:`corrupt_batch`), in :mod:`..stream.microbatch`;
   * ``fit/count``      — each count step of the device fit's pass
-    (:func:`..ops.fit_tpu.accumulate_counts`).
-
-The other sites fire nowhere in the port until their modules are ported.
+    (:func:`..ops.fit_tpu.accumulate_counts`);
+  * ``shard_step``     — each step of the mesh fit, before any collective,
+    so every rank fails the same step together
+    (:func:`..parallel.sharded.make_sharded_fit_step`).
 """
 
 from __future__ import annotations

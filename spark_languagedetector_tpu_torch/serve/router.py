@@ -474,7 +474,12 @@ class FleetRouter:
         kw = dict(priority=priority, deadline_ms=deadline_ms, trace_id=trace_id, tenant=tenant)
         try:
             with span("fleet/dispatch", replica=h.name, rows=rows, attempt=attempt):
-                faults.inject("fleet/hedge" if hedge else "fleet/dispatch")
+                # One literal site per branch, so the contract checker
+                # sees both.
+                if hedge:
+                    faults.inject("fleet/hedge")
+                else:
+                    faults.inject("fleet/dispatch")
                 # The tenant rides along: each replica resolves it itself.
                 if segment_kw is not None:
                     out, meta = h.client.segment(texts, **segment_kw, **kw)

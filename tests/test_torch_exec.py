@@ -259,7 +259,10 @@ def test_plan_and_byte_budget_equal_jax():
 def test_effective_config_has_the_jax_knob_keys():
     got = exec_config.effective_config(env={})
     ref = jconfig.effective_config(env={})
-    assert set(got["knobs"]) == set(exec_config.KNOBS) < set(ref["knobs"])
+    # Every knob the port carries is the JAX package's; with the multi-process
+    # knobs of parallel.distributed it carries all of them.
+    assert set(got["knobs"]) == set(exec_config.KNOBS) <= set(ref["knobs"])
+    assert {"tpu_coordinator", "tpu_num_processes", "tpu_process_id"} <= set(got["knobs"])
     for name, entry in got["knobs"].items():
         assert entry == ref["knobs"][name], name
     for env_name, field in got["deprecated_env"].items():

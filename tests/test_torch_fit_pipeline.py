@@ -9,7 +9,10 @@ package's fit pipeline and the host fit.
   to the host fit;
 * ``LANGDETECT_FIT_BATCH_ROWS``, ``LANGDETECT_FIT_BATCH_BYTES``,
   ``LANGDETECT_DEDUP`` and ``LANGDETECT_LENGTH_BUCKETS`` are read through
-  ``exec.config``, with the JAX package's results.
+  ``exec.config``, with the JAX package's results;
+* on a mesh of four gloo ranks each rank packs its shard of every padded
+  batch (the JAX pipeline's mesh padding, the wire form off), and the mesh
+  fit through the pipeline equals the host fit bit for bit.
 """
 
 import numpy as np
@@ -135,3 +138,61 @@ def test_fit_knobs_resolve_through_exec_config_as_in_jax(monkeypatch):
         for pad_to in (128, 512, 1024):
             assert fp.rows_for_fit_bucket(pad_to, rows_budget) == jfp.rows_for_fit_bucket(
                 pad_to, rows_budget)
+
+
+# ------------------------------------------------------------------ mesh ----
+SPEC_ARGS = (SPEC[0], SPEC[1], {"hash_bits": SPEC[2]})
+
+
+@pytest.fixture(scope="module")
+def pool(tmp_path_factory):
+    from ._torch_mesh_worker import RankPool
+
+    p = RankPool(4, tmp_path_factory.mktemp("gloo"))
+    yield p
+    p.close()
+
+
+def test_on_a_mesh_each_rank_packs_its_shard_of_the_padded_batch(pool):
+    """Each planned batch pads with empty rows to a multiple of the data
+    axis (the multiplicity padded with 1, the JAX pipeline's rule) and each
+    rank packs its contiguous shard; the wire form is off on a mesh."""
+    docs, langs = _corpus(seed=2, n=60)
+    spec = VocabSpec(*SPEC)
+    items, item_langs, plan, _, mult = fp.plan_fit_batches(docs, langs, spec)
+    assert mult is not None
+    per_rank = pool.run("fit_batches", 4, docs, langs, SPEC_ARGS)
+    assert [encoded for _, encoded in per_rank] == [0, 0, 0, 0]
+    for b, (sel, pad_to) in enumerate(plan):
+        rows = -(-len(sel) // 4) * 4
+        batch = np.concatenate([r[0][b][0] for r in per_rank])
+        lengths = np.concatenate([r[0][b][1] for r in per_rank])
+        blangs = np.concatenate([r[0][b][2] for r in per_rank])
+        bmult = np.concatenate([r[0][b][3] for r in per_rank])
+        want_b, want_l = pad_batch([items[i] for i in sel] + [b""] * (rows - len(sel)), pad_to)
+        np.testing.assert_array_equal(batch, want_b)
+        np.testing.assert_array_equal(lengths, want_l)
+        np.testing.assert_array_equal(blangs[: len(sel)], item_langs[sel])
+        np.testing.assert_array_equal(bmult, np.concatenate(
+            [mult[sel], np.ones(rows - len(sel), np.int32)]))
+        assert not blangs[len(sel):].any()
+    # The JAX pipeline pads its mesh batches the same way.
+    from spark_languagedetector_tpu.parallel.mesh import pad_rows_for_mesh as jax_pad
+    from spark_languagedetector_tpu_torch.parallel.mesh import pad_rows_for_mesh
+
+    sel = plan[0][0][:5]
+    got = pad_rows_for_mesh([items[i] for i in sel], 4, (item_langs[sel], 0), (mult[sel], 1))
+    want = jax_pad([items[i] for i in sel], 4, (item_langs[sel], 0), (mult[sel], 1))
+    assert got[0] == want[0]
+    for a, b in zip(got[1:], want[1:]):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_mesh_fit_through_the_pipeline_equals_the_host_fit(pool):
+    docs, langs = _corpus(seed=4, n=80)
+    spec = VocabSpec(*SPEC)
+    ids, w = fit_profile_numpy(docs, langs, 3, spec, 50, PARITY)
+    for got_ids, got_w in pool.run("device_fit", 4, 1, docs, langs, 3, SPEC_ARGS, 50,
+                                   env={"LANGDETECT_FIT_BATCH_ROWS": "9"}):
+        np.testing.assert_array_equal(got_ids, ids)
+        np.testing.assert_array_equal(got_w, w)

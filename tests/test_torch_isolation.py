@@ -40,6 +40,11 @@
 * An eighth, with ``jax`` unimportable, bakes and maps a model, prewarms
   through the kernel build cache, and supervises two replica children that
   cannot import ``jax`` either.
+* A ninth, with ``jax`` unimportable, runs a device fit on two gloo ranks
+  (the mesh test's rank pool, whose ranks cannot import ``jax`` either),
+  bit-identical to the host fit, and the contract checker's CLI.
+* The AST scan covers ``parallel/``, ``analysis/`` and the tests' rank
+  worker (``tests/_torch_*.py``) too.
 * With no device given and no CUDA card, the entry points raise, the
   serving ones (``ModelRegistry.load``, ``python -m
   spark_languagedetector_tpu_torch.serve.server``, ``ServeFleet.from_path``
@@ -522,6 +527,62 @@ def test_cold_start_and_replica_children_run_with_jax_unimportable(tmp_path):
     assert res.stdout.strip().endswith("isolated")
 
 
+def test_mesh_fit_and_checker_run_with_jax_unimportable(tmp_path):
+    """A ninth subprocess, with ``jax`` unimportable, fits on two gloo ranks
+    whose interpreters cannot import it either (a ``sitecustomize`` on
+    their ``PYTHONPATH``), bit-identical to the host fit, and runs the
+    contract checker's CLI on the shipped tree: exit 0."""
+    blocker = tmp_path / "blocker"
+    blocker.mkdir()
+    (blocker / "sitecustomize.py").write_text(
+        "import sys\n"
+        "for name in ('jax', 'jaxlib', 'spark_languagedetector_tpu'):\n"
+        "    sys.modules[name] = None\n"
+    )
+    script = textwrap.dedent(
+        f"""
+        import json, os, subprocess, sys
+        for name in ("jax", "jaxlib", "spark_languagedetector_tpu"):
+            sys.modules[name] = None  # any import of it raises ImportError
+        import numpy as np
+        from spark_languagedetector_tpu_torch.ops.fit import fit_profile_numpy
+        from spark_languagedetector_tpu_torch.ops.vocab import VocabSpec
+        from tests._torch_mesh_worker import RankPool
+        rng = np.random.default_rng(1)
+        docs = [bytes(rng.integers(97, 104, int(rng.integers(0, 200))).tolist())
+                for _ in range(60)]
+        langs = np.arange(60, dtype=np.int32) % 2
+        spec_args = ("hashed", (1, 2, 3), {{"hash_bits": 10}})
+        want = fit_profile_numpy(docs, langs, 2, VocabSpec("hashed", (1, 2, 3), hash_bits=10), 30)
+        pool = RankPool(2, {str(tmp_path)!r})
+        try:
+            for ids, w in pool.run("device_fit", 2, 1, docs, langs, 2, spec_args, 30,
+                                   batch_rows=7):
+                assert np.array_equal(ids, want[0]) and np.array_equal(w, want[1])
+            assert pool.run("jax_modules") == [[], []]
+        finally:
+            pool.close()
+        res = subprocess.run([sys.executable, "-m",
+                              "spark_languagedetector_tpu_torch.analysis.check", "--json"],
+                             capture_output=True, text=True, timeout=60)
+        assert res.returncode == 0, res.stdout + res.stderr
+        assert json.loads(res.stdout)["ok"] is True
+        bad = sorted(m for m, mod in sys.modules.items() if mod is not None
+                     and m.split(".")[0] in ("jax", "jaxlib", "spark_languagedetector_tpu"))
+        assert not bad, bad
+        print("isolated")
+        """
+    )
+    path = [str(blocker), str(PORT_DIR.parent), os.environ.get("PYTHONPATH", "")]
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(p for p in path if p)}
+    res = subprocess.run(
+        [sys.executable, "-c", script],
+        cwd=PORT_DIR.parent, capture_output=True, text=True, timeout=180, env=env,
+    )
+    assert res.returncode == 0, res.stderr[-4000:]
+    assert res.stdout.strip().endswith("isolated")
+
+
 def test_serving_entry_points_raise_without_a_card(tmp_path):
     """``ModelRegistry.load`` with no device, and the server's module entry
     point, need the card: with none visible they raise, never serve on the
@@ -575,7 +636,9 @@ def test_serving_entry_points_raise_without_a_card(tmp_path):
 
 def test_no_module_of_the_port_imports_jax():
     offenders = []
-    for path in sorted(PORT_DIR.rglob("*.py")) + [PORT_DIR.parent / "chip_smoke.py"]:
+    workers = sorted((PORT_DIR.parent / "tests").glob("_torch_*.py"))
+    assert {p.name for p in workers} >= {"_torch_mesh_worker.py"}
+    for path in sorted(PORT_DIR.rglob("*.py")) + [PORT_DIR.parent / "chip_smoke.py"] + workers:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
             if isinstance(node, ast.Import):
                 names = [a.name for a in node.names]
@@ -610,6 +673,12 @@ def test_no_module_of_the_port_imports_jax():
         assert (PORT_DIR / rel).is_file(), rel
     assert {"__init__.py", "microbatch.py", "refit.py"} <= {
         p.name for p in (PORT_DIR / "stream").glob("*.py")
+    }
+    assert {"__init__.py", "mesh.py", "distributed.py", "sharded.py", "sequence.py"} <= {
+        p.name for p in (PORT_DIR / "parallel").glob("*.py")
+    }
+    assert {"__init__.py", "allowlist.py", "check.py", "harvest.py", "rules.py"} <= {
+        p.name for p in (PORT_DIR / "analysis").glob("*.py")
     }
     for rel in ("models/refit.py", "persist/checkpoint.py", "resilience/dlq.py",
                 "telemetry/export.py", "artifacts/bake.py", "artifacts/compile_cache.py",

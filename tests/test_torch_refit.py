@@ -6,10 +6,11 @@ gives the ids and float64 weights of the JAX package's accumulator, of the
 port's own from-scratch device fit and of its host fit, bit for bit; a fit
 state saved by either package loads in the other; the validations keep
 their messages; and the auto-refit loop checkpoints, resumes and hot
-swaps through the port's serving registry. The two cases of the JAX
-package's tests that need a mesh are not here: the port's accumulator has
-no mesh yet. A card-only case (``cuda`` marker) repeats the fuzz on the
-card.
+swaps through the port's serving registry. On a mesh of four gloo ranks
+(``tests/_torch_mesh_worker``) the accumulator updates, finalizes, updates
+and finalizes again, saves and loads, equal to the single-device
+accumulator at every step, and its save loads in the JAX package. A
+card-only case (``cuda`` marker) repeats the fuzz on the card.
 """
 
 import itertools
@@ -193,9 +194,13 @@ def test_split_vocab_and_mesh_refused():
         .accumulator(),
         ValueError, "split",
     )
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        FitAccumulator(VocabSpec(EXACT, (1, 2)), ("de", "en"), profile_size=5,
-                       device="cpu", mesh=object())
+    # A mesh accumulator is no longer refused: over a one-rank mesh
+    # without a process group its table lives on the mesh's device.
+    from spark_languagedetector_tpu_torch.parallel.mesh import build_mesh
+
+    acc = FitAccumulator(VocabSpec(EXACT, (1, 2)), ("de", "en"), profile_size=5,
+                         mesh=build_mesh(device="cpu"))
+    assert acc.device == torch.device("cpu") and acc.mesh is not None
 
 
 def test_empty_update_commits_token():
@@ -473,3 +478,43 @@ def test_auto_refit_background_start_stop():
     assert loop.last_model is not None
     assert loop.stop().batches == 6
     assert not loop._thread.is_alive()
+
+
+# ------------------------------------------------------------------ mesh ----
+@pytest.fixture(scope="module")
+def pool(tmp_path_factory):
+    from ._torch_mesh_worker import RankPool
+
+    p = RankPool(4, tmp_path_factory.mktemp("gloo"))
+    yield p
+    p.close()
+
+
+@pytest.mark.parametrize("grams,bits", [([1, 2, 3], 10), ([1, 2], None)])
+def test_mesh_accumulator_equals_the_single_device_one(pool, tmp_path, grams, bits):
+    """Update, finalize, update, finalize, save, load and finalize on four
+    ranks (hashed: the table stripes four ways; exact bigrams: 65,792 rows
+    stripe too): each profile bit for bit the single-device accumulator's,
+    the second finalize not folding the first one's counts in again; the
+    saved state loads in the JAX package to the same profile."""
+    rows = _rows()
+    spec = {"languages": ["de", "en"], "grams": grams, "k": 60,
+            "vocab": ("hashed", bits) if bits else ("exact", None)}
+    batches = [{k: v[:5] for k, v in rows.items()}, {k: v[3:] for k, v in rows.items()}]
+    path = tmp_path / "state"
+    results = pool.run("accumulator_roundtrip", spec, batches, str(path), "mesh")
+    det = _det(["de", "en"], grams, 60)
+    det = det.set_vocab_mode(spec["vocab"][0])
+    if bits:
+        det = det.set_hash_bits(bits)
+    acc = det.accumulator()
+    assert acc.mesh is None  # no process group here: one device
+    acc.update(Table(batches[0]))
+    want = [acc.finalize()]
+    acc.update(Table(batches[1]))
+    want.append(acc.finalize())
+    for profiles, on_mesh, committed in results:
+        assert on_mesh and committed == 2
+        for got, ref in zip(profiles, want + want[1:]):
+            _same_profile(got, ref)
+    _same_profile(JaxAccumulator.load(path).finalize(), want[1])

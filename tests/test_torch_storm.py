@@ -507,15 +507,22 @@ STRAGGLE_S = 0.6
 
 
 def _storm(P, path, tmp) -> dict:
-    """The four legs of the storm drill, sequential, manual probes."""
+    """The four legs of the storm drill, sequential, manual probes. As in the
+    fleet's cross-package drills (``test_torch_fleet._settle``), the probe
+    timeout is long and the fleet settles before its first probe round: a
+    live replica's late readyz on a loaded machine must not read
+    "unreachable" in one package only (a killed replica refuses at once)."""
+    from .test_torch_fleet import PARITY_PROBE_TIMEOUT_S, _settle
+
     P.REGISTRY.reset()
     fl = P.fleet(path, replicas=3, router_kw=dict(
         probe_interval_ms=40.0, breaker_threshold=2, breaker_cooldown_s=0.3,
-        probe_timeout_s=2.0, drain_timeout_s=5.0, deadline_floor_ms=5.0,
+        probe_timeout_s=PARITY_PROBE_TIMEOUT_S, drain_timeout_s=5.0, deadline_floor_ms=5.0,
         retry_budget=P.Budget(0.2, 10.0, name="storm"),
         quarantine=P.Quarantine(2, dlq_path=f"{tmp}/dlq.jsonl", name="storm"),
         hedge_enable=False, hedge_quantile=0.05, hedge_min_ms=250.0,
     ), max_wait_ms=4, max_rows=64, max_queue_rows=512)
+    _settle(fl)
     fl.start(probe=False)
     router = fl.router
     out: dict = {"answered": [], "gates": {}}
