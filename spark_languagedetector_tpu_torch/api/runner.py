@@ -50,7 +50,10 @@ A kernel that fails to build or launch (``KernelBuildError``,
 with no replay and no ladder. The spans ``score``, ``score/pack``,
 ``score/dispatch``, ``score/fetch`` and ``score/degraded`` and the JAX
 runner's counters are recorded in ``telemetry.REGISTRY`` under the same
-names, and a call that raises dumps the flight recorder.
+names, and a call that raises dumps the flight recorder. The port adds
+``runner/prepare`` (truncate through the chunk ranks, before ``score``) and
+``runner/finish`` (the chunked argmax and the scatter-back, after it),
+siblings of ``score`` under one request trace per call.
 
 Strategies, chosen by ``auto`` in this order (the JAX package's accelerator
 order; the choice does not depend on the device — on the CPU each strategy
@@ -138,7 +141,7 @@ from ..ops.encoding import (
 from ..ops.vocab import EXACT, EXACT12, HASHED, VocabSpec
 from ..resilience import faults
 from ..resilience.policy import CLOSED, CircuitBreaker, RetryPolicy
-from ..telemetry import REGISTRY, flightrec, span, trace_request
+from ..telemetry import REGISTRY, current_trace_id, flightrec, span, trace_request
 from ..utils.debug import check_finite
 from ..utils.device import resolve_device
 from ..utils.logging import get_logger, log_event
@@ -1043,80 +1046,121 @@ class BatchRunner:
         # Flight-recorder hook: a raising call dumps the recent telemetry
         # ring (when LANGDETECT_FLIGHT_RECORDER armed it) before propagating.
         try:
-            return self._execute_traced(byte_docs, want_labels=want_labels)
+            # One request trace per call (an ambient one is joined); every
+            # span of the call, the dispatch workers' included, stamps its id.
+            with trace_request():
+                return self._execute_traced(byte_docs, want_labels=want_labels)
         except Exception as e:
             flightrec.record_crash("score", e)
             raise
 
     def _execute_traced(self, byte_docs, *, want_labels: bool):
-        block = byte_docs if isinstance(byte_docs, DocBlock) else None
-        if block is not None and self.mesh is not None:
-            # A mesh shards padded rows: block inputs materialize (exact,
-            # not zero-copy), as in JAX.
-            byte_docs = [block.doc(i) for i in range(len(block))]
-            block = None
-        inverse = None
-        if block is not None:
-            doc_starts = block.starts()
-            doc_lens = block.lengths()
-            if self.max_score_bytes:
-                cap = self.max_score_bytes
-                if self.score_encoding == UTF8:
-                    doc_lens = utf8_safe_lengths(block.flat, doc_starts, doc_lens, cap)
-                else:
-                    doc_lens = np.minimum(doc_lens, cap)
-            # The block lane is the all-unique lane: content dedup would
-            # re-materialize per-document bytes just to key on them.
-            N_in = N = len(block)
-        else:
-            byte_docs = self.scored_docs(byte_docs)
-            N_in = len(byte_docs)
-            # In-flight dedup, keyed on the truncated bytes the kernel would
-            # see; duplicates are satisfied by ``out[inverse]`` at the end.
-            if self.dedup and N_in > 1:
-                d = dedup_counted(byte_docs)
-                if d is not None:
-                    first_idx, inverse, _ = d
-                    byte_docs = [byte_docs[int(i)] for i in first_idx]
-            N = len(byte_docs)
-        L = self.num_langs
-        out = np.zeros(N, dtype=np.int32) if want_labels else np.zeros((N, L), dtype=np.float32)
-        if N == 0:
-            return out
+        # Host work of the call before the ``score`` span: truncation,
+        # dedup, chunking, the plan and the chunk ranks.
+        with span("runner/prepare", docs=len(byte_docs)) as prep:
+            block = byte_docs if isinstance(byte_docs, DocBlock) else None
+            if block is not None and self.mesh is not None:
+                # A mesh shards padded rows: block inputs materialize (exact,
+                # not zero-copy), as in JAX.
+                byte_docs = [block.doc(i) for i in range(len(block))]
+                block = None
+            inverse = None
+            if block is not None:
+                doc_starts = block.starts()
+                doc_lens = block.lengths()
+                if self.max_score_bytes:
+                    cap = self.max_score_bytes
+                    if self.score_encoding == UTF8:
+                        doc_lens = utf8_safe_lengths(block.flat, doc_starts, doc_lens, cap)
+                    else:
+                        doc_lens = np.minimum(doc_lens, cap)
+                # The block lane is the all-unique lane: content dedup would
+                # re-materialize per-document bytes just to key on them.
+                N_in = N = len(block)
+            else:
+                byte_docs = self.scored_docs(byte_docs)
+                N_in = len(byte_docs)
+                # In-flight dedup, keyed on the truncated bytes the kernel would
+                # see; duplicates are satisfied by ``out[inverse]`` at the end.
+                if self.dedup and N_in > 1:
+                    d = dedup_counted(byte_docs)
+                    if d is not None:
+                        first_idx, inverse, _ = d
+                        byte_docs = [byte_docs[int(i)] for i in first_idx]
+                N = len(byte_docs)
+            L = self.num_langs
+            out = np.zeros(N, dtype=np.int32) if want_labels else np.zeros((N, L), dtype=np.float32)
+            if N == 0:
+                return out
 
-        overlap = max(self.spec.gram_lengths) - 1
-        max_chunk = self.max_chunk
-        stride = max_chunk - overlap
-        # Work items (doc index, chunk bytes or span, window limit). The
-        # block lane never cuts chunk bytes: chunks are (start, length)
-        # spans into the byte plane, in the same (doc, rank) order.
-        if block is not None:
-            doc_idx_arr, chunk_starts, chunk_lens, limits_arr = chunk_table(
-                doc_starts, doc_lens, max_chunk, overlap
-            )
-            chunks = None
-            sizes = chunk_lens
-            n_chunks = int(chunk_lens.size)
-        else:
-            doc_idx: list[int] = []
-            chunks = []
-            limits: list[int] = []
-            for i, doc in enumerate(byte_docs):
-                if len(doc) <= max_chunk:
-                    doc_idx.append(i)
-                    chunks.append(doc)
-                    limits.append(max_chunk)  # no-op limit
-                    continue
-                parts = chunk_document(doc, max_chunk, overlap)
-                for j, part in enumerate(parts):
-                    doc_idx.append(i)
-                    chunks.append(part)
-                    limits.append(stride if j < len(parts) - 1 else max_chunk)
-            doc_idx_arr = np.asarray(doc_idx, dtype=np.int64)
-            limits_arr = np.asarray(limits, dtype=np.int64)
-            chunk_starts = chunk_lens = None
-            sizes = [len(c) for c in chunks]
-            n_chunks = len(chunks)
+            overlap = max(self.spec.gram_lengths) - 1
+            max_chunk = self.max_chunk
+            stride = max_chunk - overlap
+            # Work items (doc index, chunk bytes or span, window limit). The
+            # block lane never cuts chunk bytes: chunks are (start, length)
+            # spans into the byte plane, in the same (doc, rank) order.
+            if block is not None:
+                doc_idx_arr, chunk_starts, chunk_lens, limits_arr = chunk_table(
+                    doc_starts, doc_lens, max_chunk, overlap
+                )
+                chunks = None
+                sizes = chunk_lens
+                n_chunks = int(chunk_lens.size)
+            else:
+                doc_idx: list[int] = []
+                chunks = []
+                limits: list[int] = []
+                for i, doc in enumerate(byte_docs):
+                    if len(doc) <= max_chunk:
+                        doc_idx.append(i)
+                        chunks.append(doc)
+                        limits.append(max_chunk)  # no-op limit
+                        continue
+                    parts = chunk_document(doc, max_chunk, overlap)
+                    for j, part in enumerate(parts):
+                        doc_idx.append(i)
+                        chunks.append(part)
+                        limits.append(stride if j < len(parts) - 1 else max_chunk)
+                doc_idx_arr = np.asarray(doc_idx, dtype=np.int64)
+                limits_arr = np.asarray(limits, dtype=np.int64)
+                chunk_starts = chunk_lens = None
+                sizes = [len(c) for c in chunks]
+                n_chunks = len(chunks)
+
+            plan = self.plan(sizes)
+            # The chunk-length distribution at 64-byte granularity (the JAX
+            # package's tuner reads it): after truncation and chunking, the
+            # population the lattice pads.
+            if len(sizes):
+                edges = np.minimum(
+                    -(-np.maximum(np.asarray(sizes, dtype=np.int64), 1) // 64) * 64,
+                    max_chunk,
+                )
+                for edge, cnt in zip(*np.unique(edges, return_counts=True)):
+                    REGISTRY.incr(f"exec/len/{int(edge)}", int(cnt))
+            use_encode = self.device_encode or block is not None
+            ladder = self._ladder_allowed() and not self._multiproc
+
+            # Chunked docs (len > max_chunk) need their full score rows fetched
+            # and summed across chunks before the argmax; every other doc
+            # fetches one int32 in label mode.
+            chunk_rank: dict[int, int] = {}
+            chunk_acc = None
+            chunked_item = None  # per work item: is it a chunk of a chunked doc
+            if want_labels:
+                if block is not None:
+                    for i in np.flatnonzero(doc_lens > max_chunk):
+                        chunk_rank[int(i)] = len(chunk_rank)
+                else:
+                    for i, doc in enumerate(byte_docs):
+                        if len(doc) > max_chunk:
+                            chunk_rank[i] = len(chunk_rank)
+                if chunk_rank:
+                    chunk_acc = np.zeros((len(chunk_rank), L), dtype=np.float32)
+                    chunked_item = np.isin(
+                        doc_idx_arr, np.fromiter(chunk_rank, dtype=np.int64, count=len(chunk_rank))
+                    )
+            prep.set(unique=N, chunks=n_chunks, batches=len(plan))
 
         def chunk_bytes(sel):
             """Materialized chunk bytes of one planned batch (the padded,
@@ -1129,40 +1173,6 @@ class BatchRunner:
                 flat[s : s + ln].tobytes()
                 for s, ln in zip(chunk_starts[sel], chunk_lens[sel])
             ]
-
-        plan = self.plan(sizes)
-        # The chunk-length distribution at 64-byte granularity (the JAX
-        # package's tuner reads it): after truncation and chunking, the
-        # population the lattice pads.
-        if len(sizes):
-            edges = np.minimum(
-                -(-np.maximum(np.asarray(sizes, dtype=np.int64), 1) // 64) * 64,
-                max_chunk,
-            )
-            for edge, cnt in zip(*np.unique(edges, return_counts=True)):
-                REGISTRY.incr(f"exec/len/{int(edge)}", int(cnt))
-        use_encode = self.device_encode or block is not None
-        ladder = self._ladder_allowed() and not self._multiproc
-
-        # Chunked docs (len > max_chunk) need their full score rows fetched
-        # and summed across chunks before the argmax; every other doc
-        # fetches one int32 in label mode.
-        chunk_rank: dict[int, int] = {}
-        chunk_acc = None
-        chunked_item = None  # per work item: is it a chunk of a chunked doc
-        if want_labels:
-            if block is not None:
-                for i in np.flatnonzero(doc_lens > max_chunk):
-                    chunk_rank[int(i)] = len(chunk_rank)
-            else:
-                for i, doc in enumerate(byte_docs):
-                    if len(doc) > max_chunk:
-                        chunk_rank[i] = len(chunk_rank)
-            if chunk_rank:
-                chunk_acc = np.zeros((len(chunk_rank), L), dtype=np.float32)
-                chunked_item = np.isin(
-                    doc_idx_arr, np.fromiter(chunk_rank, dtype=np.int64, count=len(chunk_rank))
-                )
 
         def chunk_pos(sel) -> np.ndarray:
             """Rows of a batch that hold chunks of chunked documents."""
@@ -1352,7 +1362,6 @@ class BatchRunner:
             sel, pad_to = item
             t0 = time.perf_counter()
             result = dispatch_recover(sel, pad_to)
-            self.metrics.incr("chunks_scored", len(sel))
             REGISTRY.observe("score/batch_latency_s", time.perf_counter() - t0)
             return sel, project(sel, result), pad_to
 
@@ -1363,9 +1372,7 @@ class BatchRunner:
         if self.mesh is not None:
             workers = 1  # one thread keeps every rank's collectives in one order
         call_retries: list[int] = []
-        # One request trace per call (an ambient one is joined); every span
-        # below, the dispatch workers' included, stamps its id.
-        with trace_request() as req_id, trace(label="score"), self.metrics.timer("score_s"), span(
+        with trace(label="score"), span(
             "score", docs=N_in, unique=N, batches=len(plan), strategy=self.strategy,
             strategy_reason=getattr(self, "strategy_reason", "explicit"),
         ) as score_span:
@@ -1414,23 +1421,26 @@ class BatchRunner:
                     else:
                         np.add.at(out, doc_idx_arr[sel], fetched[0][: len(sel)])
 
-        if want_labels and chunk_rank:
-            for i, r in chunk_rank.items():
-                out[i] = int(np.argmax(chunk_acc[r]))
-        if inverse is not None:
-            # Deterministic scatter-back: every duplicate reads its unique
-            # row's result — bit-exact against an undeduped call on
-            # geometry-stable strategies (gather, fused), the reduction-
-            # order class on the matmul ones (hist, hybrid, pallas).
-            out = out[inverse]
-        self.metrics.incr("docs_scored", N_in)
-        REGISTRY.observe("score/retries_per_call", len(call_retries))
-        log_event(
-            _log, "runner.score", docs=N_in, unique=N, chunks=n_chunks,
-            batches=len(plan), trace_id=req_id,
-        )
-        if plan and not self._cost_recorded:
-            self._start_cost_thread(len(plan[0][0]), plan[0][1])
+        # Host work of the call after ``score``: the chunked documents'
+        # argmax, the dedup scatter-back and the call's bookkeeping.
+        with span("runner/finish", docs=N_in):
+            if want_labels and chunk_rank:
+                for i, r in chunk_rank.items():
+                    out[i] = int(np.argmax(chunk_acc[r]))
+            if inverse is not None:
+                # Deterministic scatter-back: every duplicate reads its unique
+                # row's result — bit-exact against an undeduped call on
+                # geometry-stable strategies (gather, fused), the reduction-
+                # order class on the matmul ones (hist, hybrid, pallas).
+                out = out[inverse]
+            self.metrics.incr("docs_scored", N_in)
+            REGISTRY.observe("score/retries_per_call", len(call_retries))
+            log_event(
+                _log, "runner.score", docs=N_in, unique=N, chunks=n_chunks,
+                batches=len(plan), trace_id=current_trace_id(),
+            )
+            if plan and not self._cost_recorded:
+                self._start_cost_thread(len(plan[0][0]), plan[0][1])
         return out
 
     def _start_cost_thread(self, rows: int, pad_to: int) -> None:
@@ -1614,7 +1624,7 @@ class BatchRunner:
         workers = max(1, min(int(workers), len(plan)))
         if self.mesh is not None:
             workers = 1
-        with trace_request(), self.metrics.timer("score_s"), span(
+        with trace_request(), span(
             "score", docs=N_in, unique=len(byte_docs), batches=len(plan),
             strategy=self.strategy, segment=True, cell=cell,
         ) as seg_span:

@@ -320,52 +320,58 @@ class LanguageDetector(_DetectorParams):
         device = session_device(self.get("device"))
         label_col, input_col = self.get_label_col(), self.get_input_col()
         supported = list(self.get("supportedLanguages"))
-        labels = dataset.column(label_col)
-        texts = dataset.column(input_col)
-        lang_to_idx = {lang: i for i, lang in enumerate(supported)}
+        # One request trace over the fit's stages; ``fit/encode`` and
+        # ``fit/profile`` are siblings of the ``fit`` root, which the retry
+        # policy replays (the encode is not replayed).
+        with trace_request():
+            with span("fit/encode", docs=dataset.num_rows):
+                labels = dataset.column(label_col)
+                texts = dataset.column(input_col)
+                lang_to_idx = {lang: i for i, lang in enumerate(supported)}
 
-        # Validation A: all training labels must be supported. Message kept
-        # verbatim, typo included — it is the reference's observable
-        # behavior.
-        label_list = labels.tolist()
-        for lang in dict.fromkeys(label_list):
-            if lang not in lang_to_idx:
-                raise ValueError(
-                    f"Input data contians {lang}, but it is not "
-                    f"in the list of supported languages"
+                # Validation A: all training labels must be supported.
+                # Message kept verbatim, typo included — it is the
+                # reference's observable behavior.
+                label_list = labels.tolist()
+                for lang in dict.fromkeys(label_list):
+                    if lang not in lang_to_idx:
+                        raise ValueError(
+                            f"Input data contians {lang}, but it is not "
+                            f"in the list of supported languages"
+                        )
+                # Validation B: every supported language needs a training row.
+                label_set = set(label_list)
+                for lang in supported:
+                    if lang not in label_set:
+                        raise ValueError(
+                            f"No training examples found for language {lang}. "
+                            f"Provide examples for each language"
+                        )
+
+                spec = self._vocab_spec()
+                docs = texts_to_bytes(texts.tolist(), self.get("trainEncoding"))
+                lang_idx = np.asarray([lang_to_idx[l] for l in label_list])
+            # Each attempt builds its count table from scratch, so a replay of
+            # the whole fit is exact.
+            ids, weights = _run_fit(
+                lambda: self._fit_profile(spec, docs, lang_idx, len(supported), device),
+                site="fit/count", rows=dataset.num_rows,
+                backend=self.get("fitBackend"), languages=len(supported),
+            )
+            with span("fit/profile", grams=len(ids)):
+                profile = GramProfile(
+                    spec=spec, languages=tuple(supported), ids=ids, weights=weights
                 )
-        # Validation B: every supported language needs a training row.
-        label_set = set(label_list)
-        for lang in supported:
-            if lang not in label_set:
-                raise ValueError(
-                    f"No training examples found for language {lang}. "
-                    f"Provide examples for each language"
+                log_event(
+                    _log, "fit.done", rows=dataset.num_rows, grams=profile.num_grams,
+                    languages=len(supported),
                 )
+                save_path = self.get("saveGrams")
+                if save_path is not None:
+                    from ..persist.io import save_gram_dump
 
-        spec = self._vocab_spec()
-        docs = texts_to_bytes(texts.tolist(), self.get("trainEncoding"))
-        lang_idx = np.asarray([lang_to_idx[l] for l in label_list])
-        # Each attempt builds its count table from scratch, so a replay of
-        # the whole fit is exact.
-        ids, weights = _run_fit(
-            lambda: self._fit_profile(spec, docs, lang_idx, len(supported), device),
-            site="fit/count", rows=dataset.num_rows,
-            backend=self.get("fitBackend"), languages=len(supported),
-        )
-        profile = GramProfile(
-            spec=spec, languages=tuple(supported), ids=ids, weights=weights
-        )
-        log_event(
-            _log, "fit.done", rows=dataset.num_rows, grams=profile.num_grams,
-            languages=len(supported),
-        )
-        save_path = self.get("saveGrams")
-        if save_path is not None:
-            from ..persist.io import save_gram_dump
-
-            save_gram_dump(save_path, profile)
-        return self._build_model(profile)
+                    save_gram_dump(save_path, profile)
+                return self._build_model(profile)
 
     # -- incremental refit -----------------------------------------------------
     def accumulator(self):
@@ -666,23 +672,33 @@ class LanguageDetectorModel(HasInputCol, HasOutputCol, _ResultModeParams, _Devic
 
     def transform(self, dataset: Table) -> Table:
         out_schema = self.transform_schema(dataset.schema)
-        texts = dataset.column(self.get_input_col()).tolist()
-        docs = texts_to_bytes(texts, self.get("predictEncoding"))
-        if self.get("resultMode") == "segment":
-            # One canonical JSON object per document (sort_keys ⇒ byte-
-            # stable for identical results), in the same STRING column as
-            # label mode, so every Table consumer composes unchanged.
-            detected = [
-                json.dumps(r, sort_keys=True) for r in self.segment_bytes(docs)
-            ]
-        else:
-            detected = self.runner.predict(docs, self.profile.languages)
-        result = dataset.with_column(self.get_output_col(), detected, STRING)
-        if result.schema != out_schema:
-            raise RuntimeError(
-                "transform produced a schema that disagrees with "
-                f"transform_schema: {result.schema} != {out_schema}"
-            )
+        segment = self.get("resultMode") == "segment"
+        # One request trace over the call (the runner's joins it). The
+        # stage spans are siblings of the runner's ``score`` root, never
+        # its parents, so ``score`` keeps its path.
+        with trace_request():
+            with span("transform/encode", docs=dataset.num_rows):
+                texts = dataset.column(self.get_input_col()).tolist()
+                docs = texts_to_bytes(texts, self.get("predictEncoding"))
+            if segment:
+                # One canonical JSON object per document (sort_keys ⇒ byte-
+                # stable for identical results), in the same STRING column as
+                # label mode, so every Table consumer composes unchanged.
+                detected = [
+                    json.dumps(r, sort_keys=True) for r in self.segment_bytes(docs)
+                ]
+            else:
+                ids = self.runner.predict_ids(docs)
+            with span("transform/result", docs=len(docs)):
+                if not segment:
+                    languages = self.profile.languages
+                    detected = [languages[i] for i in ids]
+                result = dataset.with_column(self.get_output_col(), detected, STRING)
+                if result.schema != out_schema:
+                    raise RuntimeError(
+                        "transform produced a schema that disagrees with "
+                        f"transform_schema: {result.schema} != {out_schema}"
+                    )
         return result
 
     def detect(self, text: str):

@@ -18,7 +18,11 @@ The stages record the JAX package's spans: ``fit/count`` around the count
 pass (with the ``fit/count`` fault site at every count step),
 ``fit/finalize`` around the weighting and top-k, and ``fit/collect`` around
 the winners' copy to the host, whose bytes add to the ``fit/collect_bytes``
-counter and the ``langdetect_fit_collect_bytes`` gauge.
+counter and the ``langdetect_fit_collect_bytes`` gauge. The port adds
+``fit/plan`` (the batch plan), ``fit/winners`` (the host's wait for the
+count and the finalize, and the winners' ids), and ``fit/collect/copy`` and
+``fit/collect/weigh`` inside ``fit/collect`` (the winners' rows to the host;
+their float64 weights).
 
 On a mesh (``mesh=``, :mod:`..parallel`), as JAX's ``device_fit_context``
 sets it up: every rank plans the same batches, counts its data shard of
@@ -275,9 +279,10 @@ def accumulate_counts(
     from .fit_pipeline import iter_device_batches, plan_fit_batches
 
     device = counts.device
-    items, item_langs, plan, straddle, item_mult = plan_fit_batches(
-        byte_docs, lang_arr, spec, batch_rows=batch_rows
-    )
+    with span("fit/plan", docs=len(byte_docs)):
+        items, item_langs, plan, straddle, item_mult = plan_fit_batches(
+            byte_docs, lang_arr, spec, batch_rows=batch_rows
+        )
     if mesh is None:
         step, shards = fit_dense_step, 1
     else:
@@ -374,23 +379,25 @@ def finalize_counts(
         else:
             top = top_k_rows(masked_candidate_weights(table, weight_mode=weight_mode), k=k)
         fin_span.fence(top)
-    top_np = np.unique(top.cpu().numpy().reshape(-1))
-    top_np = top_np[top_np < V]  # blocked-walk sentinels
+    with span("fit/winners"):
+        top_np = np.unique(top.cpu().numpy().reshape(-1))
+        top_np = top_np[top_np < V]  # blocked-walk sentinels
     with span("fit/collect", winners=int(top_np.size)) as col_span:
-        sel = torch.from_numpy(top_np).to(table.device)
-        if sharded:
-            # Each rank fills the winners its stripe holds; the sum over
-            # the table axis assembles every row.
-            rows_per = int(table.shape[0])
-            off = sharded_ops.stripe_offset(mesh, rows_per)
-            mine = (sel >= off) & (sel < off + rows_per)
-            part = torch.zeros((len(top_np), num_langs), dtype=table.dtype,
-                               device=table.device)
-            part[mine] = table[sel[mine] - off]
-            counts_sel_dev = mesh.psum(part, table_axis(mesh))
-        else:
-            counts_sel_dev = table[sel]
-        counts_sel = counts_sel_dev.cpu().numpy().astype(np.int64)
+        with span("fit/collect/copy"):
+            sel = torch.from_numpy(top_np).to(table.device)
+            if sharded:
+                # Each rank fills the winners its stripe holds; the sum over
+                # the table axis assembles every row.
+                rows_per = int(table.shape[0])
+                off = sharded_ops.stripe_offset(mesh, rows_per)
+                mine = (sel >= off) & (sel < off + rows_per)
+                part = torch.zeros((len(top_np), num_langs), dtype=table.dtype,
+                                   device=table.device)
+                part[mine] = table[sel[mine] - off]
+                counts_sel_dev = mesh.psum(part, table_axis(mesh))
+            else:
+                counts_sel_dev = table[sel]
+            counts_sel_host = counts_sel_dev.cpu().numpy()
         collect_bytes = (
             top.numel() * top.element_size()
             + counts_sel_dev.numel() * counts_sel_dev.element_size()
@@ -400,17 +407,19 @@ def finalize_counts(
         REGISTRY.set_gauge(
             "langdetect_fit_collect_bytes", float(collect_bytes), program="fit/collect"
         )
-        occurred = counts_sel.sum(axis=1) > 0
-        rows = top_np[occurred]  # dense row index == gram id
-        counts_rows = counts_sel[occurred]
-        if weight_mode == "parity":
-            present = counts_rows > 0
-            nlangs = present.sum(axis=1, keepdims=True)
-            ratio = np.where(present, 1.0 / np.maximum(nlangs, 1), 0.0)
-        else:
-            totals = counts_rows.sum(axis=1, keepdims=True)
-            ratio = counts_rows / np.maximum(totals, 1)
-        weights = np.log1p(ratio.astype(np.float64))
+        with span("fit/collect/weigh"):
+            counts_sel = counts_sel_host.astype(np.int64)
+            occurred = counts_sel.sum(axis=1) > 0
+            rows = top_np[occurred]  # dense row index == gram id
+            counts_rows = counts_sel[occurred]
+            if weight_mode == "parity":
+                present = counts_rows > 0
+                nlangs = present.sum(axis=1, keepdims=True)
+                ratio = np.where(present, 1.0 / np.maximum(nlangs, 1), 0.0)
+            else:
+                totals = counts_rows.sum(axis=1, keepdims=True)
+                ratio = counts_rows / np.maximum(totals, 1)
+            weights = np.log1p(ratio.astype(np.float64))
     check_finite([weights], "fitted weight table")
     return rows.astype(np.int64), weights
 

@@ -269,8 +269,10 @@ class Registry:
         wall_s: float,
         device_s: float | None = None,
         attrs: dict | None = None,
+        ts: float | None = None,
     ) -> None:
-        """Aggregate one finished span and stream it to the event sinks."""
+        """Aggregate one finished span and stream it to the event sinks.
+        ``ts``: the span's end on the host's wall clock (default: now)."""
         with self._lock:
             hist = self.histograms.get("span:" + path)
             if hist is None:
@@ -281,8 +283,8 @@ class Registry:
                 if dhist is None:
                     dhist = self.histograms["span_device:" + path] = Histogram()
                 dhist.record(device_s)
-        event = {"event": "telemetry.span", "ts": time.time(), "path": path,
-                 "wall_s": wall_s}
+        event = {"event": "telemetry.span", "ts": time.time() if ts is None else ts,
+                 "path": path, "wall_s": wall_s}
         if device_s is not None:
             event["device_s"] = device_s
         if attrs:

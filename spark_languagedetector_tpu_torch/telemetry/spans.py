@@ -26,6 +26,12 @@ event on each CUDA tensor's current stream, waits for it, and records
 ``device_s`` (wall through device completion) alongside ``wall_s``. CPU
 tensors are complete when they exist. Fencing serializes the pipeline, so
 it is opt-in — a profiling mode, not a production default.
+
+Clock: an exported span event's ``ts`` is the host's wall clock (epoch
+seconds) at ``start + wall_s``, where the start is read beside the span's
+first perf-counter reading, so ``[ts - wall_s, ts]`` is exactly the host's
+time inside the span. ``wall_s`` stops before the fence wait: under
+fencing, the wait is the parent span's time, not this one's.
 """
 
 from __future__ import annotations
@@ -149,6 +155,7 @@ def span(
     par = current_span() if parent is _UNSET else parent
     sp = Span(name, _resolve_path(name, par), par, dict(attrs))
     token = _ACTIVE.set(sp)
+    start_epoch = time.time()
     t0 = time.perf_counter()
     try:
         yield sp
@@ -169,4 +176,4 @@ def span(
         if sp.trace_id is not None:
             sp.attrs.setdefault("trace_id", sp.trace_id)
         sp.attrs.setdefault("tid", threading.get_ident())
-        reg.record_span(sp.path, wall_s, device_s, sp.attrs)
+        reg.record_span(sp.path, wall_s, device_s, sp.attrs, ts=start_epoch + wall_s)
