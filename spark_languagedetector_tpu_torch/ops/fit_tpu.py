@@ -10,9 +10,11 @@ order among equal values, and parity weights take only |L|+1 values, so
 the plateaus are huge: the re-rank is an integer top-k over ``-id``
 restricted to the plateau (never float keys, inexact past 2^24).
 
-Only the winners' count rows come back to the host, and their weights are
-recomputed there in float64 from the exact integer counts, so the profile
-is bit-identical to :func:`.fit.fit_profile_numpy`'s.
+The winners' weights are recomputed on the host in float64 from exact
+integer counts, so the profile is bit-identical to
+:func:`.fit.fit_profile_numpy`'s: the card finds the winners' non-zero
+(row, language, count) cells, only those cross, and the host weighs them
+with the host fit's own :func:`.fit.compute_weights`.
 
 The stages record the JAX package's spans: ``fit/count`` around the count
 pass (with the ``fit/count`` fault site at every count step),
@@ -21,8 +23,9 @@ the winners' copy to the host, whose bytes add to the ``fit/collect_bytes``
 counter and the ``langdetect_fit_collect_bytes`` gauge. The port adds
 ``fit/plan`` (the batch plan), ``fit/winners`` (the host's wait for the
 count and the finalize, and the winners' ids), and ``fit/collect/copy`` and
-``fit/collect/weigh`` inside ``fit/collect`` (the winners' rows to the host;
-their float64 weights).
+``fit/collect/weigh`` inside ``fit/collect`` (the winners' rows gathered on
+the card, their non-zero cells found there and copied to the host; the
+float64 weights built there).
 
 On a mesh (``mesh=``, :mod:`..parallel`), as JAX's ``device_fit_context``
 sets it up: every rank plans the same batches, counts its data shard of
@@ -48,6 +51,7 @@ from ..telemetry import cost
 from ..utils.debug import check_finite
 from ..utils.device import resolve_device
 from ..utils.logging import get_logger, log_event
+from . import fit as fit_ops
 from .vocab import EXACT, VocabSpec, partial_window_ids, window_ids
 
 # Beyond this many table elements the finalize walks the vocab axis in
@@ -335,6 +339,14 @@ def accumulate_counts(
     return counts
 
 
+def _nonzero_cells(counts_sel: torch.Tensor) -> torch.Tensor:
+    """int32 [3, P]: (row, language, count) of every non-zero cell of the
+    winners' count rows ``counts_sel`` [W, L], rows in ascending order
+    (``torch.nonzero`` lists row-major)."""
+    row, lang = counts_sel.nonzero(as_tuple=True)
+    return torch.stack((row, lang, counts_sel[row, lang].long())).to(torch.int32)
+
+
 def finalize_counts(
     counts: torch.Tensor,
     *,
@@ -346,12 +358,15 @@ def finalize_counts(
     """Count table → (sorted gram ids [G], float64 weights [G, L]).
 
     Weighting and the per-language top-k run on the table's device (the
-    blocked walk past :data:`TOPK_SORT_BUDGET_ELEMS` elements); only the
-    winners' ids and int32 count rows cross to the host, where their
-    weights are recomputed in float64 exactly as the host fit computes
-    them. The bytes that cross (the ``[L, k]`` winner ids and the winners'
-    count rows, not the ``V·L·4`` table) add to the ``fit/collect_bytes``
-    counter and set the ``langdetect_fit_collect_bytes`` gauge.
+    blocked walk past :data:`TOPK_SORT_BUDGET_ELEMS` elements), and the
+    winners' count rows are gathered there. Only their non-zero (row,
+    language, count) cells cross to the host (:func:`_nonzero_cells`),
+    where :func:`.fit.compute_weights` weighs them as the host fit does,
+    bit for bit, in either weight mode; rows no language saw take no cell
+    and are dropped. The bytes that cross (the ``[L, k]`` winner ids and
+    the int32 cells, not the ``V·L·4`` table) add to the
+    ``fit/collect_bytes`` counter and set the
+    ``langdetect_fit_collect_bytes`` gauge.
 
     On a ``mesh`` ``counts`` is this rank's own table; the ranks' tables
     are summed into new tensors first (the module docstring), so ``counts``
@@ -397,10 +412,10 @@ def finalize_counts(
                 counts_sel_dev = mesh.psum(part, table_axis(mesh))
             else:
                 counts_sel_dev = table[sel]
-            counts_sel_host = counts_sel_dev.cpu().numpy()
+            cells_dev = _nonzero_cells(counts_sel_dev)
+            row, lang, cnt = cells_dev.cpu().numpy()
         collect_bytes = (
-            top.numel() * top.element_size()
-            + counts_sel_dev.numel() * counts_sel_dev.element_size()
+            top.numel() * top.element_size() + cells_dev.numel() * cells_dev.element_size()
         )
         col_span.set(bytes=collect_bytes, table_bytes=V * num_langs * 4)
         REGISTRY.incr("fit/collect_bytes", collect_bytes)
@@ -408,18 +423,11 @@ def finalize_counts(
             "langdetect_fit_collect_bytes", float(collect_bytes), program="fit/collect"
         )
         with span("fit/collect/weigh"):
-            counts_sel = counts_sel_host.astype(np.int64)
-            occurred = counts_sel.sum(axis=1) > 0
-            rows = top_np[occurred]  # dense row index == gram id
-            counts_rows = counts_sel[occurred]
-            if weight_mode == "parity":
-                present = counts_rows > 0
-                nlangs = present.sum(axis=1, keepdims=True)
-                ratio = np.where(present, 1.0 / np.maximum(nlangs, 1), 0.0)
-            else:
-                totals = counts_rows.sum(axis=1, keepdims=True)
-                ratio = counts_rows / np.maximum(totals, 1)
-            weights = np.log1p(ratio.astype(np.float64))
+            rows, weights = fit_ops.compute_weights(
+                fit_ops.GramCounts(ids=top_np[row], langs=lang, counts=cnt.astype(np.int64),
+                                   num_langs=num_langs),
+                weight_mode,
+            )
     check_finite([weights], "fitted weight table")
     return rows.astype(np.int64), weights
 
@@ -484,8 +492,6 @@ def fit_profile_device_split(
     length <= 3 there is nothing to count on the device: the whole fit runs
     on the host (as in the JAX package), and an event says so.
     """
-    from . import fit as fit_ops
-
     low_lengths = tuple(n for n in spec.gram_lengths if n <= 3)
     long_lengths = tuple(n for n in spec.gram_lengths if n > 3)
     if not long_lengths:

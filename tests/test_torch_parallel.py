@@ -272,6 +272,35 @@ def test_vocab_not_divisible_by_the_shards_takes_the_unsharded_finalize(pool):
         np.testing.assert_array_equal(w, want_w)
 
 
+@pytest.mark.parametrize("weight_mode", ["parity", "counts"])
+@pytest.mark.parametrize("V", [1000, 1001])
+def test_mesh_finalize_weighs_the_summed_rows_like_the_host_fit(pool, V, weight_mode):
+    """After the stripes' ``psum`` (V divides by the shards) or the whole
+    table's sum (it does not), every rank weighs the winners of the summed
+    table as the host fit does, bit for bit, in both weight modes."""
+    from spark_languagedetector_tpu_torch.ops.fit import (
+        GramCounts,
+        compute_weights,
+        select_top_grams,
+    )
+
+    rng = np.random.default_rng(11)
+    L, k = 5, 40
+    by_rank = [(rng.random((V, L)) < 0.03).astype(np.int32) * rng.integers(1, 5, (V, L),
+                                                                         dtype=np.int32)
+               for _ in range(4)]
+    summed = sum(by_rank)
+    rows, langs = np.nonzero(summed)
+    gc = GramCounts(ids=rows.astype(np.int64), langs=langs.astype(np.int32),
+                    counts=summed[rows, langs].astype(np.int64), num_langs=L)
+    want_ids, want_w = select_top_grams(*compute_weights(gc, weight_mode), k)
+    for ids, w, sharded, kept in pool.run("finalize_local_counts", 4, 1, by_rank, L, k,
+                                          weight_mode):
+        assert sharded == (V == 1000) and kept
+        np.testing.assert_array_equal(ids, want_ids)
+        assert w.dtype == np.float64 and np.array_equal(w.view(np.int64), want_w.view(np.int64))
+
+
 # -------------------------------------------------------- long documents ----
 def test_long_document_psum_and_ring_agree(pool, eight_devices):
     rng = np.random.default_rng(3)
