@@ -53,7 +53,12 @@ runner's counters are recorded in ``telemetry.REGISTRY`` under the same
 names, and a call that raises dumps the flight recorder. The port adds
 ``runner/prepare`` (truncate through the chunk ranks, before ``score``) and
 ``runner/finish`` (the chunked argmax and the scatter-back, after it),
-siblings of ``score`` under one request trace per call.
+siblings of ``score`` under one request trace per call. A ``hybrid``
+batch's dispatch records its two parts, ``hybrid/short`` (lengths ≤ 2) and
+``hybrid/long`` (the rest), inside ``score/dispatch``; a runner that holds
+row-histogram operands sets the ``runner/hist_rows`` gauge to their padded
+row count, and its ``runner.strategy`` event names the long grams' route
+(``long_route``).
 
 Strategies, chosen by ``auto`` in this order (the JAX package's accelerator
 order; the choice does not depend on the device — on the CPU each strategy
@@ -421,6 +426,7 @@ class BatchRunner:
             if self.strategy == name and not ok:
                 raise ValueError(f"strategy={name!r} needs {need}")
         self._build_operands(w, lut)
+        self.long_route = self._long_route()
         self._check_tables()
         if self.batch_size is None:
             if self.strategy in ("fused", "pallas"):
@@ -434,8 +440,8 @@ class BatchRunner:
                 self.batch_size = DEFAULT_BATCH_SIZE
         log_event(
             _log, "runner.strategy", strategy=self.strategy,
-            reason=self.strategy_reason, device=str(self.device),
-            quantization=self.quantization,
+            reason=self.strategy_reason, long_route=self.long_route,
+            device=str(self.device), quantization=self.quantization,
             mesh=None if self.mesh is None else dict(self.mesh.shape),
         )
         # The one-time packer build happens here, not inside the first
@@ -496,6 +502,7 @@ class BatchRunner:
         else:
             return None
         wp, rhi = score_hist.pad_weights(w)
+        REGISTRY.set_gauge("runner/hist_rows", float(wp.shape[0]))
         dev = self.device
         return HistState(
             weights_pad=upload(wp, dev).to(torch.float64),
@@ -505,6 +512,22 @@ class BatchRunner:
             kind="hashed" if table is None else table.kind,
             lut=upload(lut, dev) if table is None else None,
         )
+
+    def _long_route(self) -> str | None:
+        """How the grams the bigram scorers leave are scored: ``bucket``
+        or ``lut`` (the row histogram's membership), else the gather's
+        ``striped``, ``cuckoo``, ``lut`` or ``dense`` form; None for
+        ``fused`` and ``pallas``, which leave none."""
+        if self.strategy in ("fused", "pallas"):
+            return None
+        h = self.hist_state
+        if h is not None:
+            return "bucket" if h.bucket is not None else "lut"
+        if self._striped:
+            return "striped gather"
+        if self.cuckoo is not None:
+            return "cuckoo gather"
+        return "lut gather" if self.table_lut is not None else "dense gather"
 
     def _build_pallas_state(self, w: np.ndarray, lut: np.ndarray | None) -> PallasState:
         """Bigram-scorer operands on the device. For ``pallas`` the whole
@@ -656,12 +679,17 @@ class BatchRunner:
             # applies its own lengths' partial-window rules, so the sum is
             # exact.
             st = self.pallas_state
-            short = score_pallas.score_batch_pallas(
-                batch, lengths, st.w1, st.w2, window_limit, spec=st.spec
-            )
             if not st.rest:
-                return short
-            return short + self._long_scores(batch, lengths, window_limit, st.rest)
+                return score_pallas.score_batch_pallas(
+                    batch, lengths, st.w1, st.w2, window_limit, spec=st.spec
+                )
+            with span("hybrid/short"):
+                short = score_pallas.score_batch_pallas(
+                    batch, lengths, st.w1, st.w2, window_limit, spec=st.spec
+                )
+            with span("hybrid/long", route=self.long_route):
+                long = self._long_scores(batch, lengths, window_limit, st.rest)
+            return short + long
         return self._long_scores(batch, lengths, window_limit, None)
 
     def _long_scores(self, batch, lengths, window_limit, subset) -> torch.Tensor:

@@ -25,7 +25,9 @@ counter and the ``langdetect_fit_collect_bytes`` gauge. The port adds
 count and the finalize, and the winners' ids), and ``fit/collect/copy`` and
 ``fit/collect/weigh`` inside ``fit/collect`` (the winners' rows gathered on
 the card, their non-zero cells found there and copied to the host; the
-float64 weights built there).
+float64 weights built there). The split fit's host half records
+``fit/long/count``, ``fit/long/select`` and ``fit/merge``
+(:func:`fit_profile_device_split`).
 
 On a mesh (``mesh=``, :mod:`..parallel`), as JAX's ``device_fit_context``
 sets it up: every rank plans the same batches, counts its data shard of
@@ -491,6 +493,13 @@ def fit_profile_device_split(
     is the joint per-language top-k over both parts' top-k. With no gram
     length <= 3 there is nothing to count on the device: the whole fit runs
     on the host (as in the JAX package), and an event says so.
+
+    The host half records ``fit/long/count`` (the long grams' windows
+    counted per (gram, language)), ``fit/long/select`` (their weights and
+    top-k) and ``fit/merge`` (the joint top-k over both halves and the sort
+    by id), and adds the windows it counted and the distinct (gram,
+    language) pairs they make to the ``fit/long/windows`` and
+    ``fit/long/pairs`` counters.
     """
     low_lengths = tuple(n for n in spec.gram_lengths if n <= 3)
     long_lengths = tuple(n for n in spec.gram_lengths if n > 3)
@@ -519,17 +528,26 @@ def fit_profile_device_split(
         byte_docs, lang_arr, num_langs, spec_low, profile_size, weight_mode,
         batch_rows=batch_rows, extra_counts=extra, device=device, mesh=mesh,
     )
-    gc = fit_ops.extract_gram_counts(
-        byte_docs, lang_arr, num_langs, spec,
-        gram_lengths_subset=long_lengths, min_partial_gram_len=4,
-    )
-    ids_high, w_high = fit_ops.select_top_grams(
-        *fit_ops.compute_weights(gc, weight_mode), profile_size
-    )
-    ids, weights = fit_ops.select_top_grams(
-        np.concatenate([ids_low, ids_high]),
-        np.concatenate([w_low, w_high]),
-        profile_size,
-    )
-    order = np.argsort(ids)
-    return ids[order], np.ascontiguousarray(weights[order])
+    with span("fit/long/count", docs=len(byte_docs), gram_lengths=list(long_lengths)) as sp:
+        gc = fit_ops.extract_gram_counts(
+            byte_docs, lang_arr, num_langs, spec,
+            gram_lengths_subset=long_lengths, min_partial_gram_len=4,
+        )
+        # Each counted window adds one to its pair's count.
+        windows, pairs = int(gc.counts.sum()), int(gc.ids.size)
+        sp.set(windows=windows, pairs=pairs)
+    REGISTRY.incr("fit/long/windows", windows)
+    REGISTRY.incr("fit/long/pairs", pairs)
+    with span("fit/long/select", pairs=pairs):
+        ids_high, w_high = fit_ops.select_top_grams(
+            *fit_ops.compute_weights(gc, weight_mode), profile_size
+        )
+    with span("fit/merge", low=int(ids_low.size), high=int(ids_high.size)):
+        ids, weights = fit_ops.select_top_grams(
+            np.concatenate([ids_low, ids_high]),
+            np.concatenate([w_low, w_high]),
+            profile_size,
+        )
+        order = np.argsort(ids)
+        ids, weights = ids[order], np.ascontiguousarray(weights[order])
+    return ids, weights

@@ -24,6 +24,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..telemetry import REGISTRY
 from ._kernels import ROW_HIST, check_operand
 from .bucket import HI_BITS, SLOTS
 from .score import _splice_partial_windows
@@ -131,7 +132,9 @@ def row_hist_kernel(
     rows: torch.Tensor, vmax: torch.Tensor, W: int, rhi: int, miss: int
 ) -> torch.Tensor:
     """Launch ``csrc/row_hist.cu`` on the current CUDA stream (no
-    synchronisation). Same inputs and output as :func:`row_hist_plain`."""
+    synchronisation). Same inputs and output as :func:`row_hist_plain`.
+    A launch past :data:`SHARED_MEMORY_ROWS` rows takes the kernel's
+    global-atomic path and adds one to ``score/hist/global_atomic``."""
     dev = rows.device
     if dev.type != "cuda":
         raise ValueError(f"row_hist kernel needs CUDA tensors, got {dev}")
@@ -150,6 +153,8 @@ def row_hist_kernel(
     out = torch.empty((B, R), dtype=torch.float32, device=dev)
     if B == 0 or KW == 0:
         return out.zero_()
+    if R > SHARED_MEMORY_ROWS:
+        REGISTRY.incr("score/hist/global_atomic")
     with torch.cuda.device(dev):
         ROW_HIST.launch(
             rows.data_ptr(), vmax.data_ptr(), out.data_ptr(), B, KW // W, W, R, miss,
