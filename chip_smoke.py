@@ -2047,7 +2047,6 @@ def device_fit(torch, what: str, case: FitCase, kernels, smi_line: str):
     transforms ``case.texts`` through ``kernels``, labels identical to the
     host-fitted model's."""
     from spark_languagedetector_tpu_torch import Table
-    from spark_languagedetector_tpu_torch.ops import fit as fit_ops
     from spark_languagedetector_tpu_torch.ops import fit_tpu as FT
 
     det = case.det.copy({"fitBackend": "device"})
@@ -2056,8 +2055,8 @@ def device_fit(torch, what: str, case: FitCase, kernels, smi_line: str):
         walls: dict[str, list[float]] = {}
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        with walls_of(torch, FT, ("accumulate_counts", "finalize_counts"), walls), \
-                walls_of(torch, fit_ops, ("extract_gram_counts",), walls):
+        with walls_of(torch, FT, ("accumulate_counts", "finalize_counts", "count_long_grams",
+                                  "select_long_grams"), walls):
             t0 = time.perf_counter()
             model = det.fit(case.table)
             torch.cuda.synchronize()
@@ -2082,11 +2081,11 @@ def device_fit(torch, what: str, case: FitCase, kernels, smi_line: str):
     blocked = V * L > FT.TOPK_SORT_BUDGET_ELEMS
     def split(w):
         w = {k: sum(v) for k, v in w.items()}
-        host_half = (f", host long-gram count {w['extract_gram_counts']:.3f}s"
-                     if "extract_gram_counts" in w else "")
+        long_half = (f", long-gram count {w['count_long_grams']:.3f}s, select "
+                     f"{w['select_long_grams']:.3f}s" if "count_long_grams" in w else "")
         return (f"{w['fit']:.3f}s (count {w['accumulate_counts']:.3f}s, finalize "
                 f"{w['finalize_counts']:.3f}s {'blocked' if blocked else 'naive'}"
-                f"{host_half})")
+                f"{long_half})")
 
     say(what, f"device fit of {case.table.num_rows} docs on the card: first call "
         f"{split(runs[0])}, warm {split(runs[1])}; host fit first call "
@@ -2203,8 +2202,9 @@ def phase_fit5(torch, dev, case: FitCase, smi_line: str):
 
 def phase_fit3(torch, dev, case: FitCase, smi_line: str) -> None:
     """Config 3 through ``fitBackend='device'``: the split fit, lengths 1..3
-    on the card (the blocked finalize over a 3.37 GB table), 4..5 on the
-    host; then the plateau table."""
+    in the dense table on the card (the blocked finalize over a 3.37 GB
+    table), 4..5 as sorted (gram, language) keys counted and ranked on the
+    card too, only the winners' cells to the host; then the plateau table."""
     device_fit(torch, "fit3", case, ("row_hist", "bigram_hist"), smi_line)
     plateau_topk(torch, dev)
 

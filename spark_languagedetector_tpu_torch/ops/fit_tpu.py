@@ -25,9 +25,14 @@ counter and the ``langdetect_fit_collect_bytes`` gauge. The port adds
 count and the finalize, and the winners' ids), and ``fit/collect/copy`` and
 ``fit/collect/weigh`` inside ``fit/collect`` (the winners' rows gathered on
 the card, their non-zero cells found there and copied to the host; the
-float64 weights built there). The split fit's host half records
-``fit/long/count``, ``fit/long/select`` and ``fit/merge``
-(:func:`fit_profile_device_split`).
+float64 weights built there).
+
+The split fit (:func:`fit_profile_device_split`, exact vocabs with gram
+lengths > 3) counts its n = 4..5 grams on the same device as sorted 64-bit
+(gram, language) keys and ranks each language's top k there; only the
+winners' cells cross to the host, and the merge with the dense half ranks
+each language's candidates from both halves. It records
+``fit/long/count``, ``fit/long/select`` and ``fit/merge``.
 
 On a mesh (``mesh=``, :mod:`..parallel`), as JAX's ``device_fit_context``
 sets it up: every rank plans the same batches, counts its data shard of
@@ -54,7 +59,13 @@ from ..utils.debug import check_finite
 from ..utils.device import resolve_device
 from ..utils.logging import get_logger, log_event
 from . import fit as fit_ops
-from .vocab import EXACT, VocabSpec, partial_window_ids, window_ids
+from .vocab import (
+    EXACT,
+    MAX_DEVICE_ID_GRAM_LEN,
+    VocabSpec,
+    partial_window_ids,
+    window_ids,
+)
 
 # Beyond this many table elements the finalize walks the vocab axis in
 # blocks (:func:`finalize_topk_blocked`) instead of materializing the
@@ -341,6 +352,15 @@ def accumulate_counts(
     return counts
 
 
+def _table_top_k(table: torch.Tensor, *, weight_mode: str, k: int) -> torch.Tensor:
+    """Per-language top-k rows int64 [L, k] of one count table [V, L] on
+    its device, ties and a language's zero-weight fill to the lowest row;
+    the blocked walk past :data:`TOPK_SORT_BUDGET_ELEMS` elements."""
+    if table.shape[0] * table.shape[1] > TOPK_SORT_BUDGET_ELEMS:
+        return finalize_topk_blocked(table, weight_mode=weight_mode, k=k)
+    return top_k_rows(masked_candidate_weights(table, weight_mode=weight_mode), k=k)
+
+
 def _nonzero_cells(counts_sel: torch.Tensor) -> torch.Tensor:
     """int32 [3, P]: (row, language, count) of every non-zero cell of the
     winners' count rows ``counts_sel`` [W, L], rows in ascending order
@@ -356,6 +376,7 @@ def finalize_counts(
     profile_size: int,
     weight_mode: str = "parity",
     mesh=None,
+    winners_out: list | None = None,
 ) -> tuple[np.ndarray, np.ndarray]:
     """Count table → (sorted gram ids [G], float64 weights [G, L]).
 
@@ -375,6 +396,11 @@ def finalize_counts(
     keeps only this rank's counts and a later finalize sums them again.
     The winners' count rows come from the stripes that hold them, summed
     over the table axis; every rank returns the same profile.
+
+    ``winners_out``, where given, receives the int64 ``[L, k]`` winner ids
+    as the top-k listed them (unseen rows and blocked-walk sentinels
+    included), for a caller that merges this profile with another
+    (:func:`fit_profile_device_split`).
     """
     V = int(counts.shape[0])
     k = min(profile_size, V)
@@ -391,14 +417,15 @@ def finalize_counts(
             top = sharded_ops.make_sharded_finalize_topk(
                 mesh, profile_size=k, weight_mode=weight_mode
             )(table)
-        elif V * num_langs > TOPK_SORT_BUDGET_ELEMS:
-            top = finalize_topk_blocked(table, weight_mode=weight_mode, k=k)
         else:
-            top = top_k_rows(masked_candidate_weights(table, weight_mode=weight_mode), k=k)
+            top = _table_top_k(table, weight_mode=weight_mode, k=k)
         fin_span.fence(top)
     with span("fit/winners"):
-        top_np = np.unique(top.cpu().numpy().reshape(-1))
+        top_lk = top.cpu().numpy()
+        top_np = np.unique(top_lk.reshape(-1))
         top_np = top_np[top_np < V]  # blocked-walk sentinels
+    if winners_out is not None:
+        winners_out.append(top_lk)
     with span("fit/collect", winners=int(top_np.size)) as col_span:
         with span("fit/collect/copy"):
             sel = torch.from_numpy(top_np).to(table.device)
@@ -445,6 +472,7 @@ def fit_profile_device(
     extra_counts=None,
     device=None,
     mesh=None,
+    winners_out: list | None = None,
 ) -> tuple[np.ndarray, np.ndarray]:
     """Full device fit on ``device`` (None ⇒ the CUDA card), or over
     ``mesh`` on its ranks' devices: (sorted gram ids [G], float64 weights
@@ -454,7 +482,8 @@ def fit_profile_device(
     (gram, language). The top-k selection runs at float32 precision, which
     can pick another winner only where two grams' weights differ by less
     than one f32 ulp ('counts' mode; parity weights take |L|+1 values).
-    ``extra_counts`` (ids, langs, counts) are added to the table once.
+    ``extra_counts`` (ids, langs, counts) are added to the table once;
+    ``winners_out`` is :func:`finalize_counts`'.
     """
     dev = mesh.device if mesh is not None else resolve_device(device)
     counts = torch.zeros((spec.id_space_size, num_langs), dtype=torch.int32, device=dev)
@@ -465,8 +494,200 @@ def fit_profile_device(
     )
     return finalize_counts(
         counts, num_langs=num_langs, profile_size=profile_size,
-        weight_mode=weight_mode, mesh=mesh,
+        weight_mode=weight_mode, mesh=mesh, winners_out=winners_out,
     )
+
+
+def count_long_grams(
+    byte_docs, lang_arr: np.ndarray, num_langs: int, spec: VocabSpec,
+    long_lengths: tuple[int, ...], device: torch.device,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Every window of the exact ``long_lengths`` (n >= 4) counted per
+    (gram, language) on ``device``: (sorted unique keys ``id * L + lang``
+    int64 [P], their counts int64 [P]), the (gram, language) order of
+    :class:`.fit.GramCounts`.
+
+    The corpus goes up once as one flat byte buffer, so no padding and no
+    batch plan split a window; the window at byte p counts where it ends
+    inside p's document. Ids are the host's (``offsets[n]`` plus the
+    base-256 polynomial, from shifted slices), and a key stays below 2^49
+    at n = 5. A document of 4 bytes up to the longest length adds its
+    partial windows of the lengths above it, the whole document once per
+    length, as ``extract_gram_counts(..., min_partial_gram_len=4)`` does;
+    shorter documents' partial windows belong to the dense half.
+    """
+    L = num_langs
+    lengths = np.fromiter(map(len, byte_docs), dtype=np.int64, count=len(byte_docs))
+    flat = bytearray().join(byte_docs)
+    T = len(flat)
+    parts = []
+    if T:
+        buf = torch.frombuffer(flat, dtype=torch.uint8).to(device)
+        lens = torch.from_numpy(lengths).to(device)
+        doc = torch.repeat_interleave(
+            torch.arange(lens.numel(), device=device), lens, output_size=T
+        )
+        # Bytes from each position to the end of its document.
+        left = torch.cumsum(lens, 0)[doc] - torch.arange(T, device=device)
+        lang_at = torch.from_numpy(lang_arr).to(device)[doc]
+        offsets = spec.offsets
+        for n in long_lengths:
+            W = T - n + 1
+            if W <= 0:
+                continue
+            ids = buf[:W].long()
+            for i in range(1, n):
+                ids = ids * 256 + buf[i : i + W]
+            parts.append(((ids + offsets[n]) * L + lang_at[:W])[left[:W] >= n])
+    max_n = max(long_lengths)
+    partial = [
+        spec.gram_to_id(bytes(byte_docs[i])) * L + int(lang_arr[i])
+        for i in np.flatnonzero((lengths > MAX_DEVICE_ID_GRAM_LEN) & (lengths < max_n))
+        for n in long_lengths if n > lengths[i]
+    ]
+    if partial:
+        parts.append(torch.tensor(partial, dtype=torch.int64, device=device))
+    if not parts:
+        none = torch.zeros(0, dtype=torch.int64, device=device)
+        return none, none
+    return torch.unique(torch.cat(parts), sorted=True, return_counts=True)
+
+
+def _rank_candidates(lang: np.ndarray, ids: np.ndarray, w: np.ndarray, k: int,
+                     num_langs: int) -> np.ndarray:
+    """Positions of each language's first k candidates under the host fit's
+    (weight desc, id asc) order, language by language: ``lang``, ``ids``,
+    ``w`` [C] describe candidate (language, gram, weight) triples, and every
+    language has at least k of them."""
+    order = np.lexsort((ids, -w, lang))
+    lang_s = lang[order]
+    rank = np.arange(lang_s.size) - np.searchsorted(lang_s, np.arange(num_langs))[lang_s]
+    return order[rank < k]
+
+
+def select_long_grams(
+    keys: torch.Tensor, counts: torch.Tensor, num_langs: int, profile_size: int,
+    weight_mode: str,
+) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """``select_top_grams(*compute_weights(...))`` of :func:`count_long_grams`'
+    pairs, ranked on their device: (sorted winner ids [G], float64 weights
+    [G, L], each language's top ids int64 [L, k], a language's in any order)
+    on the host, with k = min(profile_size, U) over the U distinct grams.
+
+    The pairs fill an int32 [U, L] table by each gram's rank among the
+    distinct grams, which rises with its id, and the dense half's top-k
+    ranks it (:func:`_table_top_k`: ties and a language's zero-weight fill
+    to the lowest row, so the lowest id, as the host's lexsort). In parity
+    mode that is the host's order: a weight falls strictly as the gram's
+    language count rises, in float32 as in float64. In counts mode a
+    float32 top-k can rank a gram below a language's pick whose float64
+    weight it ties or passes, so every pair whose float64 ratio count/total
+    (the host's, bit for bit) reaches the lowest non-zero pick's ratio less
+    2^-40 of it joins that language's candidates: a weight is log1p of the
+    ratio, so a pair ranked ahead of a pick holds at least that ratio. Only
+    the candidate grams' non-zero cells cross to the host, where
+    :func:`.fit.compute_weights` weighs them as the host fit does; counts
+    mode's candidates are ranked there by (weight desc, id asc) in float64.
+    """
+    L = num_langs
+    dev = keys.device
+    gram = torch.div(keys, L, rounding_mode="floor")
+    lang = keys - gram * L
+    new = torch.ones(keys.shape, dtype=torch.bool, device=dev)
+    new[1:] = gram[1:] != gram[:-1]
+    grank = torch.cumsum(new, 0) - 1
+    ugram = gram[new]
+    U = int(ugram.numel())
+    k = min(profile_size, U)
+    if k == 0:
+        return np.zeros(0, np.int64), np.zeros((0, L)), np.zeros((L, 0), np.int64)
+    table = torch.zeros((U, L), dtype=torch.int32, device=dev)
+    table[grank, lang] = counts.to(torch.int32)
+    # Every row was seen and k <= U, so no blocked-walk sentinel surfaces.
+    top = _table_top_k(table, weight_mode=weight_mode, k=k)
+    if weight_mode == fit_ops.PARITY:
+        rows = top.reshape(-1)
+    else:
+        totals = table.sum(dim=1)
+        picked = table[top, torch.arange(L, device=dev)[:, None]]
+        floor = torch.where(picked > 0, picked.double() / totals[top].double(), torch.inf)
+        band = counts.double() / totals[grank].double() >= floor.amin(dim=1)[lang] * (
+            1 - 2.0**-40)
+        zero = picked == 0  # the zero-weight fill, exact as ranked
+        cand_lang = torch.cat([lang[band], torch.nonzero(zero)[:, 0]])
+        rows = cand_rows = torch.cat([grank[band], top[zero]])
+    sel = torch.unique(rows)
+    row, lng, cnt = _nonzero_cells(table[sel]).cpu().numpy()
+    sel_ids = ugram[sel].cpu().numpy()
+    ids, weights = fit_ops.compute_weights(
+        fit_ops.GramCounts(ids=sel_ids[row], langs=lng, counts=cnt.astype(np.int64),
+                           num_langs=L),
+        weight_mode,
+    )
+    if weight_mode == fit_ops.PARITY:
+        return ids, weights, ugram[top].cpu().numpy()
+    cand_lang, cand_ids = cand_lang.cpu().numpy(), ugram[cand_rows].cpu().numpy()
+    w = weights[np.searchsorted(ids, cand_ids), cand_lang]
+    top_ids = cand_ids[_rank_candidates(cand_lang, cand_ids, w, k, L)].reshape(L, k)
+    won = np.zeros(ids.size, dtype=bool)
+    won[np.searchsorted(ids, top_ids)] = True
+    return ids[won], weights[won], top_ids
+
+
+def merge_top_k(parts, profile_size: int) -> tuple[np.ndarray, np.ndarray]:
+    """``select_top_grams`` over the concatenation of profiles with
+    disjoint ids, from each part's own per-language winners: (sorted ids
+    [G], float64 weights [G, L]).
+
+    ``parts`` holds (ids [G_i] ascending, weights [G_i, L], top [L, c_i],
+    exact), ``top[l]`` holding that part's first c_i grams of language l
+    (ids not in the part are skipped). A gram in the joint top-k of l has
+    fewer than k grams of its own part ahead of it, so it is among its
+    part's first k of l; with c_i at least min(k, G_i) only the parts'
+    lists compete, about 2k candidates a language, instead of every row of
+    every part. ``exact`` False marks a list ranked at float32 precision
+    (the dense half's in counts mode): a row that ties or passes its lowest
+    pick in float64 can be missing, so every row of the part weighing at
+    least that pick for l joins l's candidates (each such row passes a pick
+    the float64 order drops).
+    """
+    L = parts[0][1].shape[1]
+    k = min(profile_size, sum(p[0].size for p in parts))
+    lang, gid, w, part, row = [], [], [], [], []
+    for i, (ids, weights, top, exact) in enumerate(parts):
+        r = np.searchsorted(ids, top)
+        hit = r < ids.size
+        hit[hit] = ids[r[hit]] == top[hit]
+        l = np.broadcast_to(np.arange(L)[:, None], top.shape)[hit]
+        r = r[hit]
+        if not exact:
+            floor = np.full(L, np.inf)
+            np.minimum.at(floor, l, weights[r, l])
+            floor[np.bincount(l, minlength=L) < min(k, ids.size)] = -np.inf
+            r, l = np.nonzero(weights >= floor)
+        lang.append(l)
+        gid.append(ids[r])
+        w.append(weights[r, l])
+        part.append(np.full(r.size, i))
+        row.append(r)
+    lang, gid, w, part, row = map(np.concatenate, (lang, gid, w, part, row))
+    sel = _rank_candidates(lang, gid, w, k, L)
+    keep = []
+    for i, (ids, _, _, _) in enumerate(parts):
+        won = np.zeros(ids.size, dtype=bool)
+        won[row[sel][part[sel] == i]] = True
+        keep.append(np.flatnonzero(won))
+    ids = np.concatenate([p[0][r] for p, r in zip(parts, keep)])
+    out = np.empty((ids.size, L), dtype=np.float64)
+    at = 0
+    for (_, weights, _, _), r in zip(parts, keep):
+        # The rows are in range; "clip" spares the buffered copy "raise" makes.
+        np.take(weights, r, axis=0, out=out[at : at + r.size], mode="clip")
+        at += r.size
+    if np.any(ids[1:] < ids[:-1]):
+        order = np.argsort(ids)
+        ids, out = ids[order], out[order]
+    return ids, out
 
 
 def fit_profile_device_split(
@@ -481,25 +702,32 @@ def fit_profile_device_split(
     mesh=None,
 ) -> tuple[np.ndarray, np.ndarray]:
     """Device fit for exact vocabs with gram lengths > 3 (on ``device``, or
-    the low part over ``mesh``).
+    the dense half over ``mesh``).
 
     No dense table holds the 256^4..256^5 id space, so the counts split by
     the resulting gram's length (a 2-byte document's partial window for
     n = 5 is a 2-gram): grams of length <= 3 are counted by the device fit
     over the (1..3) sub-spec (whose ids equal the full spec's), with short
     documents' partial windows of the long classes added as extra counts;
-    grams of length >= 4 by the exact host path. A gram's weight depends
-    only on its own counts, so each part weights exactly, and the profile
-    is the joint per-language top-k over both parts' top-k. With no gram
-    length <= 3 there is nothing to count on the device: the whole fit runs
-    on the host (as in the JAX package), and an event says so.
+    grams of length >= 4 as sorted 64-bit (gram, language) keys on the same
+    device (:func:`count_long_grams`; on a mesh each rank counts every
+    document on its own device), ranked there per language
+    (:func:`select_long_grams`), and only the long winners' cells cross to
+    the host. A gram's weight depends only on its own counts, so each part
+    weights exactly, and the profile is the joint per-language top-k over
+    both parts' winners (:func:`merge_top_k`: each language's candidates are
+    the dense half's ``[L, k]`` winner ids and the long half's; in counts
+    mode, where the dense half ranked at float32 precision, also its rows
+    that weigh at least a language's lowest pick). With no gram length <= 3
+    there is nothing to count in a dense table: the whole fit runs on the
+    host (as in the JAX package), and an event says so.
 
-    The host half records ``fit/long/count`` (the long grams' windows
-    counted per (gram, language)), ``fit/long/select`` (their weights and
-    top-k) and ``fit/merge`` (the joint top-k over both halves and the sort
-    by id), and adds the windows it counted and the distinct (gram,
-    language) pairs they make to the ``fit/long/windows`` and
-    ``fit/long/pairs`` counters.
+    The long half records ``fit/long/count`` (the keys counted and fenced),
+    ``fit/long/select`` (the ranking, the winners' cells copied and weighed)
+    and ``fit/merge`` (the joint top-k and the sort by id), the first two
+    with ``backend="device"``, and adds the windows it counted and the
+    distinct (gram, language) pairs they make to the ``fit/long/windows``
+    and ``fit/long/pairs`` counters.
     """
     low_lengths = tuple(n for n in spec.gram_lengths if n <= 3)
     long_lengths = tuple(n for n in spec.gram_lengths if n > 3)
@@ -524,30 +752,28 @@ def fit_profile_device_split(
     if corr:
         e = np.asarray([(i, l, c) for (i, l), c in corr.items()], dtype=np.int64)
         extra = (e[:, 0], e[:, 1], e[:, 2])
+    top_low: list = []
     ids_low, w_low = fit_profile_device(
         byte_docs, lang_arr, num_langs, spec_low, profile_size, weight_mode,
         batch_rows=batch_rows, extra_counts=extra, device=device, mesh=mesh,
+        winners_out=top_low,
     )
-    with span("fit/long/count", docs=len(byte_docs), gram_lengths=list(long_lengths)) as sp:
-        gc = fit_ops.extract_gram_counts(
-            byte_docs, lang_arr, num_langs, spec,
-            gram_lengths_subset=long_lengths, min_partial_gram_len=4,
-        )
+    dev = mesh.device if mesh is not None else resolve_device(device)
+    with span("fit/long/count", docs=len(byte_docs), gram_lengths=list(long_lengths),
+              backend="device") as sp:
+        keys, counts = count_long_grams(byte_docs, lang_arr, num_langs, spec, long_lengths, dev)
         # Each counted window adds one to its pair's count.
-        windows, pairs = int(gc.counts.sum()), int(gc.ids.size)
+        windows, pairs = int(counts.sum()), int(keys.numel())
         sp.set(windows=windows, pairs=pairs)
     REGISTRY.incr("fit/long/windows", windows)
     REGISTRY.incr("fit/long/pairs", pairs)
-    with span("fit/long/select", pairs=pairs):
-        ids_high, w_high = fit_ops.select_top_grams(
-            *fit_ops.compute_weights(gc, weight_mode), profile_size
+    with span("fit/long/select", pairs=pairs, backend="device"):
+        ids_high, w_high, top_high = select_long_grams(
+            keys, counts, num_langs, profile_size, weight_mode
         )
     with span("fit/merge", low=int(ids_low.size), high=int(ids_high.size)):
-        ids, weights = fit_ops.select_top_grams(
-            np.concatenate([ids_low, ids_high]),
-            np.concatenate([w_low, w_high]),
+        return merge_top_k(
+            [(ids_low, w_low, top_low[0], weight_mode == fit_ops.PARITY),
+             (ids_high, w_high, top_high, True)],
             profile_size,
         )
-        order = np.argsort(ids)
-        ids, weights = ids[order], np.ascontiguousarray(weights[order])
-    return ids, weights

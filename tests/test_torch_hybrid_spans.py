@@ -7,14 +7,18 @@ runner with row-histogram operands sets ``runner/hist_rows`` to their padded
 row count, and only a launch of the CUDA kernel past the shared-memory limit
 counts ``score/hist/global_atomic``. A runner of another strategy records
 neither part. The split fit records ``fit/long/count``, ``fit/long/select``
-and ``fit/merge`` once each, after its device half, and counts the n = 4..5
-windows and distinct (gram, language) pairs it counted.
+and ``fit/merge`` once each, after its dense half, the first two with
+``backend="device"`` (the long half's keys are counted and ranked on the
+fit's device), and counts the n = 4..5 windows and distinct (gram,
+language) pairs it counted: the host count's numbers on the same corpus.
 """
 
 import numpy as np
 import pytest
 
 from spark_languagedetector_tpu_torch import LanguageDetector, LanguageDetectorModel, Table
+from spark_languagedetector_tpu_torch.ops import fit as tfit
+from spark_languagedetector_tpu_torch.ops.vocab import EXACT, VocabSpec
 from spark_languagedetector_tpu_torch.telemetry import REGISTRY
 
 EXACT5 = {b"a": [1.0, 0.0], b"ab": [0.5, 0.0], b"xyz": [0.0, 1.0], b"abcd": [2.0, 0.0],
@@ -106,8 +110,15 @@ def test_split_fit_records_its_host_half(sink):
     assert paths.index("fit/collect") < paths.index("fit/long/count")
     assert paths.index("fit/merge") < paths.index("fit")
     windows, pairs = _long_windows_and_pairs(texts, labels)
+    gc = tfit.extract_gram_counts(
+        [t.encode() for t in texts], np.array([0, 0, 0, 1, 1, 1]), 2,
+        VocabSpec(EXACT, (1, 2, 3, 4, 5)), gram_lengths_subset=(4, 5), min_partial_gram_len=4)
+    assert (int(gc.counts.sum()), gc.ids.size) == (windows, pairs)  # the host's count
     assert _counter("fit/long/windows") - before["fit/long/windows"] == windows
     assert _counter("fit/long/pairs") - before["fit/long/pairs"] == pairs
     (count,) = [e for e in sink.events if e["path"] == "fit/long/count"]
     assert count["windows"] == windows and count["pairs"] == pairs
     assert np.isfinite(count["wall_s"])
+    for stage in ("fit/long/count", "fit/long/select"):
+        (event,) = [e for e in sink.events if e["path"] == stage]
+        assert event["backend"] == "device", stage
