@@ -2333,7 +2333,7 @@ def staging_stress(torch, dev, r5, docs5, ref_s, ref_l) -> None:
     before its copy back, changes the scores, and the phase fails. Every
     run is checked; runs repeat (up to STAGING_ATTEMPTS) until a take has
     waited on a pending copy, the reuse under test."""
-    from spark_languagedetector_tpu_torch.api import runner as runner_mod
+    from spark_languagedetector_tpu_torch.exec import pack as pack_mod
     from spark_languagedetector_tpu_torch.exec import staging
 
     real_to_device = staging.Staged.to_device
@@ -2349,12 +2349,12 @@ def staging_stress(torch, dev, r5, docs5, ref_s, ref_l) -> None:
     try:
         with swapped(staging, "RING_DEPTH", 1), swapped(staging.Staged, "to_device", delayed):
             for runs in range(1, STAGING_ATTEMPTS + 1):
-                for form, size_test, encode in (("ragged", runner_mod.ragged_fit, False),
+                for form, size_test, encode in (("ragged", pack_mod.ragged_fit, False),
                                                 ("padded", lambda *a: None, False),
-                                                ("wire", runner_mod.ragged_fit, True)):
+                                                ("wire", pack_mod.ragged_fit, True)):
                     for workers in (1, 2):
                         r5.device_encode, r5.dispatch_workers = encode, workers
-                        with swapped(runner_mod, "ragged_fit", size_test):
+                        with swapped(pack_mod, "ragged_fit", size_test):
                             s, l = r5.score(docs5), r5.predict_ids(docs5)
                         _same(f"staging check: scores, {form} form, {workers} worker(s)",
                               s, ref_s)
@@ -2377,8 +2377,8 @@ def staging_stress(torch, dev, r5, docs5, ref_s, ref_l) -> None:
 def phase_runner(torch, dev, model5, texts5, ids5, model3, case3: FitCase, smi_line) -> None:
     """The execution layer on the card (phase 14 of the module docstring)."""
     from spark_languagedetector_tpu_torch import Table
-    from spark_languagedetector_tpu_torch.api import runner as runner_mod
     from spark_languagedetector_tpu_torch.api.runner import BatchRunner
+    from spark_languagedetector_tpu_torch.exec import pack as pack_mod
     from spark_languagedetector_tpu_torch.ops import KernelLaunchError
     from spark_languagedetector_tpu_torch.ops import score_fused as SF
     from spark_languagedetector_tpu_torch.ops.encode_device import DocBlock
@@ -2406,20 +2406,20 @@ def phase_runner(torch, dev, model5, texts5, ids5, model3, case3: FitCase, smi_l
 
     # 1. Forms x lanes x dispatch workers, bit for bit.
     unpacks = []
-    real_unpack = runner_mod.unpack_ragged
+    real_unpack = pack_mod.unpack_ragged
     saved = {k: getattr(r5, k) for k in ("device_encode", "dispatch_workers")}
     ref_s = ref_l = None
     per_doc = {}
-    forms = (("ragged", runner_mod.ragged_fit, False), ("padded", lambda *a: None, False),
-             ("wire", runner_mod.ragged_fit, True))
-    with swapped(runner_mod, "unpack_ragged", lambda *a: unpacks.append(1) or real_unpack(*a)):
+    forms = (("ragged", pack_mod.ragged_fit, False), ("padded", lambda *a: None, False),
+             ("wire", pack_mod.ragged_fit, True))
+    with swapped(pack_mod, "unpack_ragged", lambda *a: unpacks.append(1) or real_unpack(*a)):
         for form, size_test, encode in forms:
             for workers in (1, 2):
                 for lane in ("list", "DocBlock"):
                     r5.device_encode, r5.dispatch_workers = encode, workers
                     inp = docs5 if lane == "list" else DocBlock.from_bytes(docs5)
                     REGISTRY.reset()
-                    with swapped(runner_mod, "ragged_fit", size_test):
+                    with swapped(pack_mod, "ragged_fit", size_test):
                         s, l = r5.score(inp), r5.predict_ids(inp)
                     if ref_s is None:
                         ref_s, ref_l = s, l

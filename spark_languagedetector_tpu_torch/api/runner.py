@@ -3,7 +3,8 @@
 Port of ``spark_languagedetector_tpu.api.runner.BatchRunner`` for the
 ``score`` / ``predict_ids`` / ``predict`` path and segment mode's
 ``segment_cells``, execution layer included. A call runs the JAX runner's
-sequence (``_execute_traced`` / ``_segment_traced``):
+sequence (``_execute_traced`` / ``_segment_traced``, whose batches both run
+through one loop, ``_run_plan``):
 
   truncate → dedup → chunk table → plan → pack (padded, ragged or wire) →
   pinned H2D copy → dispatch under policy/breaker/ladder → asynchronous D2H
@@ -19,13 +20,12 @@ sequence (``_execute_traced`` / ``_segment_traced``):
   are summed before the argmax, so chunked documents label exactly;
 * chunks are grouped into padded-length buckets and byte-budgeted
   micro-batches (``exec.core.plan_micro_batches``);
-* each batch is packed into pinned host memory (``exec.staging``) in one of
-  three forms — padded (``native.pack_batch``), ragged when the flat buffer
-  is smaller than the padded one (``native.pack_ragged``, rebuilt on the card
-  by ``ops.encoding.unpack_ragged``), or the raw wire form when
-  ``device_encode`` is on or the input is a ``DocBlock``
-  (``wire_from_docs``/``gather_wire``, rebuilt by
-  ``ops.encode_device.encode_batch``) — and copied ``non_blocking``;
+* each batch ships in the wire format of :mod:`..exec.pack`, which the
+  device fit shares: packed into pinned host memory (``exec.staging``)
+  padded, ragged where the flat buffer is smaller than the padded one, or
+  as raw bytes (the wire form) when ``device_encode`` is on or the input is
+  a ``DocBlock``; copied ``non_blocking`` and rebuilt into the padded batch
+  on the card;
 * batches dispatch in plan order on ``dispatch_workers`` threads
   (``exec.core.run_ordered``) under ``exec.core.guarded_dispatch``: a
   retryable failure replays under the ``RetryPolicy``; a ``CircuitBreaker``
@@ -120,29 +120,14 @@ from ..exec.core import (
     rows_under_byte_budget,
     run_ordered,
 )
+from ..exec.pack import Batch, Spans
 from ..exec.staging import HostStaging, copy_to_host_async, host_numpy, upload
 from ..ops import bucket as bucket_ops
 from ..ops import cuckoo as cuckoo_ops
 from ..ops import score as score_ops
 from ..ops import _kernels, score_fused, score_hist, score_pallas
-from ..ops.encode_device import (
-    DocBlock,
-    chunk_table,
-    encode_batch,
-    gather_wire,
-    utf8_safe_lengths,
-    wire_capacity,
-    wire_from_docs,
-)
-from ..ops.encoding import (
-    ENCODINGS,
-    RAGGED_CHUNK,
-    UTF8,
-    chunk_document,
-    ragged_fit,
-    truncate_utf8,
-    unpack_ragged,
-)
+from ..ops.encode_device import DocBlock, chunk_table, utf8_safe_lengths
+from ..ops.encoding import ENCODINGS, UTF8, chunk_document, truncate_utf8
 from ..ops.vocab import EXACT, EXACT12, HASHED, VocabSpec
 from ..resilience import faults
 from ..resilience.policy import CLOSED, CircuitBreaker, RetryPolicy
@@ -215,7 +200,6 @@ STRATEGIES = ("auto", "fused", "pallas", "hybrid", "hist", "gather")
 # (a multiple of 128; the JAX package's default).
 SEGMENT_CELL = 256
 
-_U8, _I32 = np.uint8, np.int32
 _NO_POS = np.zeros(0, dtype=np.int64)
 
 
@@ -255,6 +239,42 @@ class PallasState:
 
 
 @dataclass
+class _Work:
+    """One whole-document call's work items: item ``k`` is ``chunks[k]``
+    (list lane) or the span ``(chunk_starts[k], chunk_lens[k])`` of
+    ``block``'s byte plane (block lane) of unique document ``doc_idx[k]``,
+    with window limit ``limits[k]``. ``chunk_rank`` numbers the chunked
+    documents; in label mode ``chunked`` marks their items."""
+
+    n_in: int
+    block: DocBlock | None = None
+    n: int = 0
+    inverse: np.ndarray | None = None
+    chunks: list | None = None
+    chunk_starts: np.ndarray | None = None
+    chunk_lens: np.ndarray | None = None
+    doc_idx: np.ndarray | None = None
+    limits: np.ndarray | None = None
+    plan: list = field(default_factory=list)
+    chunk_rank: dict = field(default_factory=dict)
+    chunked: np.ndarray | None = None
+
+    def docs(self, sel) -> list[bytes]:
+        """Materialized chunk bytes of one batch (the ladder's input)."""
+        if self.chunks is not None:
+            return [self.chunks[k] for k in sel]
+        flat = self.block.flat
+        return [
+            flat[s : s + ln].tobytes()
+            for s, ln in zip(self.chunk_starts[sel], self.chunk_lens[sel])
+        ]
+
+    def chunk_pos(self, sel) -> np.ndarray:
+        """Rows of a batch that hold chunks of chunked documents."""
+        return _NO_POS if self.chunked is None else np.flatnonzero(self.chunked[sel])
+
+
+@dataclass
 class BatchRunner:
     """Scores document collections through fixed-shape micro-batches on one
     device. One runner per (profile, configuration); reuse it across calls.
@@ -276,10 +296,8 @@ class BatchRunner:
     ``length_buckets``, ``batch_bytes``, ``dispatch_workers``,
     ``device_encode`` (ship the raw wire form; off by default),
     ``degraded_fallback`` (the ladder where no CUDA kernel runs, see
-    :meth:`_ladder_allowed`; on) and ``dedup`` (on). A batch
-    ships ragged where that form is smaller than the padded one
-    (:func:`~..ops.encoding.ragged_fit`). ``retry_policy`` and ``breaker``
-    default to ``RetryPolicy.from_env()`` and
+    :meth:`_ladder_allowed`; on) and ``dedup`` (on). ``retry_policy``
+    and ``breaker`` default to ``RetryPolicy.from_env()`` and
     ``CircuitBreaker.from_env(name="score")``; ``metrics`` holds the
     runner's own counters and timers.
 
@@ -893,56 +911,23 @@ class BatchRunner:
             return None
         return limits.astype(np.int32)
 
-    def _stage_padded(self, batch_docs, pad_to: int, limit_np):
-        """Pack one batch padded straight into pinned memory → staged."""
-        rows = len(batch_docs)
-        fields = [("batch", _U8, (rows, pad_to)), ("lengths", _I32, (rows,))]
-        if limit_np is not None:
-            fields.append(("limit", _I32, (rows,)))
-        st = self._staging.take(fields)
-        with st:
-            v = st.views
-            native.pack_batch(batch_docs, pad_to, out=v["batch"], lengths_out=v["lengths"])
-            if limit_np is not None:
-                v["limit"][:] = limit_np
-        return st
-
-    def _stage_ragged(self, batch_docs, pad_to: int, limit_np, rows_flat: int, step: int):
-        """Pack one batch ragged (``rows_flat`` chunk rows) into pinned memory."""
-        rows = len(batch_docs)
-        fields = [
-            ("flat", _U8, (rows_flat, RAGGED_CHUNK)),
-            ("offs", _I32, (rows,)),
-            ("lengths", _I32, (rows,)),
-        ]
-        if limit_np is not None:
-            fields.append(("limit", _I32, (rows,)))
-        st = self._staging.take(fields)
-        with st:
-            v = st.views
-            _, offs, lengths = native.pack_ragged(
-                batch_docs, pad_to, flat_step=step, out=v["flat"]
-            )
-            v["offs"][:] = offs
-            v["lengths"][:] = lengths
-            if limit_np is not None:
-                v["limit"][:] = limit_np
-        return st
-
-    def _fetch(self, arr, started=None) -> np.ndarray:
-        """Host numpy value of one result tensor: from its started pinned
-        copy (``started``, see ``exec.staging.copy_to_host_async``) once the
-        copy's event has synchronized, else a synchronous copy. Every result
-        byte the runner pulls off the device goes through here
-        (``score/fetch_bytes``): a label request fetches 4·B bytes of ids
-        plus the chunked documents' few score rows, on every rung. On a mesh
-        the tensor already holds the whole batch (the dispatch gathered it
-        over the data axis), so every rank fetches every row."""
-        if started is None:
-            started = copy_to_host_async(arr)
-        host = host_numpy(started)
-        REGISTRY.incr("score/fetch_bytes", int(host.nbytes))
-        return host
+    def _fetch(self, tensors, started=None) -> tuple:
+        """Host numpy values of a batch's result tensors (None stays None):
+        each from its started pinned copy (``started``, see
+        :meth:`_start_fetches`) once the copy's event has synchronized, else
+        a synchronous copy. Every result byte the runner pulls off the
+        device goes through here (``score/fetch_bytes``): a label request
+        fetches 4·B bytes of ids plus the chunked documents' few score rows,
+        on every rung. On a mesh the tensors already hold the whole batch
+        (the dispatch gathered it over the data axis), so every rank fetches
+        every row."""
+        out = []
+        for t, h in zip(tensors, started or [None] * len(tensors)):
+            host = None if t is None else host_numpy(h or copy_to_host_async(t))
+            if host is not None:
+                REGISTRY.incr("score/fetch_bytes", int(host.nbytes))
+            out.append(host)
+        return tuple(out)
 
     @staticmethod
     def _start_fetches(tensors):
@@ -956,18 +941,6 @@ class BatchRunner:
             except Exception:
                 out.append(None)
         return out
-
-    def _mesh_rows(self, batch_docs, limit_np):
-        """This rank's data shard of a batch on a mesh: the documents and
-        window limits, padded with empty rows to a multiple of the data
-        axis, then cut to the rank's rows (JAX ``pad_rows_for_mesh``; pad
-        rows score nothing and are dropped after the gather)."""
-        from ..parallel.mesh import pad_rows_for_mesh
-
-        limits = np.full(len(batch_docs), self.max_chunk, np.int32) if limit_np is None else limit_np
-        docs, limits = pad_rows_for_mesh(list(batch_docs), self._ndata, (limits, self.max_chunk))
-        shard_limits = self.mesh.shard_rows(limits)
-        return self.mesh.shard_rows(docs), None if limit_np is None else shard_limits
 
     def _fence(self, t) -> None:
         """Wait for the device work queued so far (a ladder rung counts as
@@ -1001,6 +974,14 @@ class BatchRunner:
             breaker=self.breaker.state,
             cause=repr(cause) if cause is not None else None, **extra,
         )
+
+    def _recovered(self) -> None:
+        """A fast-path success after degraded batches: once the breaker
+        agrees the path is healthy, reset ``langdetect_degraded``."""
+        if self._degraded_mode and self.breaker.state == CLOSED:
+            self._degraded_mode = False
+            REGISTRY.set_gauge("langdetect_degraded", 0.0)
+            log_event(_log, "runner.degraded_recovered")
 
     def _ladder(self, batch_docs, batch_limits, pad_to: int, cause, device_rung, host_rung,
                 **attrs):
@@ -1049,26 +1030,6 @@ class BatchRunner:
             "degraded ladder exhausted with no recorded cause"
         )
 
-    def _degraded_scores(self, batch_docs, batch_limits, pad_to: int, cause=None):
-        """The ladder for whole-document scores: a kernel strategy (fused,
-        pallas, hybrid, hist; on the CPU, their plain versions) falls to the
-        device gather first, ``gather`` straight to the host."""
-        return self._ladder(
-            batch_docs, batch_limits, pad_to, cause,
-            None if self.strategy == "gather" else self._gather_escape, self._host_scores,
-        )
-
-    def _segment_degraded(self, batch_docs, batch_limits, pad_to: int, cell: int, cause=None):
-        """The ladder in segment mode: only a fused runner has a different
-        device program to fall back from; every other strategy's segment
-        dispatch is already the gather cell scorer."""
-        return self._ladder(
-            batch_docs, batch_limits, pad_to, cause,
-            (lambda b, ln, lim: self._window_scores_device(b, ln, lim, cell))
-            if self.strategy == "fused" else None,
-            lambda b, ln, lim: self._host_window_scores(b, ln, lim, cell), segment=True,
-        )
-
     # -- whole-document execution ----------------------------------------------
     def _execute(self, byte_docs, *, want_labels: bool):
         # Flight-recorder hook: a raising call dumps the recent telemetry
@@ -1086,250 +1047,35 @@ class BatchRunner:
         # Host work of the call before the ``score`` span: truncation,
         # dedup, chunking, the plan and the chunk ranks.
         with span("runner/prepare", docs=len(byte_docs)) as prep:
-            block = byte_docs if isinstance(byte_docs, DocBlock) else None
-            if block is not None and self.mesh is not None:
-                # A mesh shards padded rows: block inputs materialize (exact,
-                # not zero-copy), as in JAX.
-                byte_docs = [block.doc(i) for i in range(len(block))]
-                block = None
-            inverse = None
-            if block is not None:
-                doc_starts = block.starts()
-                doc_lens = block.lengths()
-                if self.max_score_bytes:
-                    cap = self.max_score_bytes
-                    if self.score_encoding == UTF8:
-                        doc_lens = utf8_safe_lengths(block.flat, doc_starts, doc_lens, cap)
-                    else:
-                        doc_lens = np.minimum(doc_lens, cap)
-                # The block lane is the all-unique lane: content dedup would
-                # re-materialize per-document bytes just to key on them.
-                N_in = N = len(block)
-            else:
-                byte_docs = self.scored_docs(byte_docs)
-                N_in = len(byte_docs)
-                # In-flight dedup, keyed on the truncated bytes the kernel would
-                # see; duplicates are satisfied by ``out[inverse]`` at the end.
-                if self.dedup and N_in > 1:
-                    d = dedup_counted(byte_docs)
-                    if d is not None:
-                        first_idx, inverse, _ = d
-                        byte_docs = [byte_docs[int(i)] for i in first_idx]
-                N = len(byte_docs)
+            w = self._prepare(byte_docs, want_labels)
             L = self.num_langs
-            out = np.zeros(N, dtype=np.int32) if want_labels else np.zeros((N, L), dtype=np.float32)
-            if N == 0:
+            out = np.zeros(w.n, dtype=np.int32) if want_labels else np.zeros((w.n, L), dtype=np.float32)
+            if w.n == 0:
                 return out
-
-            overlap = max(self.spec.gram_lengths) - 1
-            max_chunk = self.max_chunk
-            stride = max_chunk - overlap
-            # Work items (doc index, chunk bytes or span, window limit). The
-            # block lane never cuts chunk bytes: chunks are (start, length)
-            # spans into the byte plane, in the same (doc, rank) order.
-            if block is not None:
-                doc_idx_arr, chunk_starts, chunk_lens, limits_arr = chunk_table(
-                    doc_starts, doc_lens, max_chunk, overlap
-                )
-                chunks = None
-                sizes = chunk_lens
-                n_chunks = int(chunk_lens.size)
-            else:
-                doc_idx: list[int] = []
-                chunks = []
-                limits: list[int] = []
-                for i, doc in enumerate(byte_docs):
-                    if len(doc) <= max_chunk:
-                        doc_idx.append(i)
-                        chunks.append(doc)
-                        limits.append(max_chunk)  # no-op limit
-                        continue
-                    parts = chunk_document(doc, max_chunk, overlap)
-                    for j, part in enumerate(parts):
-                        doc_idx.append(i)
-                        chunks.append(part)
-                        limits.append(stride if j < len(parts) - 1 else max_chunk)
-                doc_idx_arr = np.asarray(doc_idx, dtype=np.int64)
-                limits_arr = np.asarray(limits, dtype=np.int64)
-                chunk_starts = chunk_lens = None
-                sizes = [len(c) for c in chunks]
-                n_chunks = len(chunks)
-
-            plan = self.plan(sizes)
-            # The chunk-length distribution at 64-byte granularity (the JAX
-            # package's tuner reads it): after truncation and chunking, the
-            # population the lattice pads.
-            if len(sizes):
-                edges = np.minimum(
-                    -(-np.maximum(np.asarray(sizes, dtype=np.int64), 1) // 64) * 64,
-                    max_chunk,
-                )
-                for edge, cnt in zip(*np.unique(edges, return_counts=True)):
-                    REGISTRY.incr(f"exec/len/{int(edge)}", int(cnt))
-            use_encode = self.device_encode or block is not None
-            ladder = self._ladder_allowed() and not self._multiproc
-
-            # Chunked docs (len > max_chunk) need their full score rows fetched
-            # and summed across chunks before the argmax; every other doc
-            # fetches one int32 in label mode.
-            chunk_rank: dict[int, int] = {}
             chunk_acc = None
-            chunked_item = None  # per work item: is it a chunk of a chunked doc
-            if want_labels:
-                if block is not None:
-                    for i in np.flatnonzero(doc_lens > max_chunk):
-                        chunk_rank[int(i)] = len(chunk_rank)
-                else:
-                    for i, doc in enumerate(byte_docs):
-                        if len(doc) > max_chunk:
-                            chunk_rank[i] = len(chunk_rank)
-                if chunk_rank:
-                    chunk_acc = np.zeros((len(chunk_rank), L), dtype=np.float32)
-                    chunked_item = np.isin(
-                        doc_idx_arr, np.fromiter(chunk_rank, dtype=np.int64, count=len(chunk_rank))
-                    )
-            prep.set(unique=N, chunks=n_chunks, batches=len(plan))
+            if w.chunked is not None:
+                chunk_acc = np.zeros((len(w.chunk_rank), L), dtype=np.float32)
+            prep.set(unique=w.n, chunks=len(w.doc_idx), batches=len(w.plan))
+        wire = self.device_encode or w.block is not None
+        # The wire form's fault site is ``score/pack``, the others'
+        # ``score/dispatch`` (:meth:`_dispatch_device`), as in the JAX runner.
+        dispatch = self._strategy_dispatch if wire else self._dispatch_device
 
-        def chunk_bytes(sel):
-            """Materialized chunk bytes of one planned batch (the padded,
-            ragged and degraded packers' input; the wire form never calls
-            it)."""
-            if chunks is not None:
-                return [chunks[k] for k in sel]
-            flat = block.flat
-            return [
-                flat[s : s + ln].tobytes()
-                for s, ln in zip(chunk_starts[sel], chunk_lens[sel])
-            ]
-
-        def chunk_pos(sel) -> np.ndarray:
-            """Rows of a batch that hold chunks of chunked documents."""
-            if chunked_item is None:
-                return _NO_POS
-            return np.flatnonzero(chunked_item[sel])
-
-        def dispatch(batch, lengths, window_limit, sel, device_encode: bool):
-            """The strategy on one batch: labels straight from the device
-            when no row is a chunk (the fused kernel's in-kernel argmax),
-            else scores."""
-            labels = want_labels and chunk_pos(sel).size == 0
-            if device_encode:
-                return self._strategy_dispatch(batch, lengths, window_limit, labels)
-            return self._dispatch_device(batch, lengths, window_limit, labels)
-
-        def encode_and_dispatch(sel: np.ndarray, pad_to: int):
-            """The wire form: raw concatenated bytes + int32 offsets into
-            pinned memory, the padded batch rebuilt on the card. An injected
-            ``score/pack`` fault (or a real wire-build failure) rides the
-            shared retry/degraded wiring, whose ladder re-packs on the host
-            — the exact fallback."""
-            rows = len(sel)
-            limit_np = self._limit_np(limits_arr[sel])
-            if block is not None:
-                real_bytes = int(chunk_lens[sel].sum())
+        def build(sel, pad_to):
+            """Pack, copy and dispatch one planned batch: labels straight
+            from the device when no row is a chunk (the fused kernel's
+            in-kernel argmax), else scores. Re-invocable: scoring is
+            stateless, so a replay packs the batch again."""
+            labels = want_labels and w.chunk_pos(sel).size == 0
+            if w.block is not None:
+                docs = Spans(w.block.flat, w.chunk_starts[sel], w.chunk_lens[sel])
             else:
-                batch_docs = [chunks[k] for k in sel]
-                real_bytes = sum(map(len, batch_docs))
-            capacity = wire_capacity(real_bytes, rows, pad_to)
-            with span("score/pack", parent=score_span, rows=rows, pad_to=pad_to, wire=True):
-                faults.inject("score/pack")
-                fields = [("wire", _U8, (capacity,)), ("starts", _I32, (rows,)),
-                          ("lengths", _I32, (rows,))]
-                if limit_np is not None:
-                    fields.append(("limit", _I32, (rows,)))
-                st = self._staging.take(fields)
-                with st:
-                    v = st.views
-                    if block is not None:
-                        _, starts_np, lengths_np = gather_wire(
-                            block.flat, chunk_starts[sel], chunk_lens[sel], capacity,
-                            out=v["wire"],
-                        )
-                    else:
-                        _, starts_np, lengths_np = wire_from_docs(
-                            batch_docs, capacity, out=v["wire"]
-                        )
-                    v["starts"][:] = starts_np
-                    v["lengths"][:] = lengths_np
-                    if limit_np is not None:
-                        v["limit"][:] = limit_np
-            # Observed after the wire build succeeds, so chaos retries never
-            # double-count shipped bytes.
-            fill = real_bytes / capacity if capacity else 1.0
-            REGISTRY.observe("score/batch_fill_ratio", fill)
-            REGISTRY.observe("score/padding_waste", 1.0 - fill)
-            REGISTRY.incr("score/real_bytes", real_bytes)
-            REGISTRY.incr("score/capacity_bytes", capacity)
-            index_bytes = 8 * rows + (0 if limit_np is None else limit_np.nbytes)
-            REGISTRY.incr("score/wire_bytes", capacity + index_bytes)
-            REGISTRY.incr("score/wire_docs", rows)
-            REGISTRY.incr("score/encoded_batches")
-            with span("score/dispatch", parent=score_span, rows=rows, pad_to=pad_to,
-                      wire=True) as sp:
-                dev = st.to_device()
-                batch = encode_batch(dev["wire"], dev["starts"], dev["lengths"], pad_to)
-                result = dispatch(batch, dev["lengths"], dev.get("limit"), sel, True)
-                sp.fence(result)
-            return result
-
-        def build_and_dispatch(sel: np.ndarray, pad_to: int):
-            """Pack one planned batch and dispatch it. Re-invocable: scoring
-            is stateless, so a transient failure is retried by replaying the
-            batch verbatim."""
-            if use_encode:
-                return encode_and_dispatch(sel, pad_to)
-            batch_docs = chunk_bytes(sel)
-            rows = len(batch_docs)
-            limit_np = self._limit_np(limits_arr[sel])
-            real_bytes = sum(map(len, batch_docs))
-
-            def observe_fill(capacity: int, index_bytes: int, real: int = real_bytes,
-                             docs: int = rows) -> None:
-                fill = real / capacity if capacity else 1.0
-                REGISTRY.observe("score/batch_fill_ratio", fill)
-                REGISTRY.observe("score/padding_waste", 1.0 - fill)
-                REGISTRY.incr("score/real_bytes", real)
-                REGISTRY.incr("score/capacity_bytes", capacity)
-                REGISTRY.incr("score/wire_bytes", capacity + index_bytes)
-                REGISTRY.incr("score/wire_docs", docs)
-
-            if self.mesh is not None:
-                # The padded form of this rank's shard; the result gathered
-                # over the data axis is the whole batch's.
-                shard, shard_limit = self._mesh_rows(batch_docs, limit_np)
-                # This rank's own copy: its shard's bytes.
-                observe_fill(len(shard) * pad_to, 4 * len(shard),
-                             sum(map(len, shard)), len(shard))
-                with span("score/pack", parent=score_span, rows=len(shard), pad_to=pad_to):
-                    st = self._stage_padded(shard, pad_to, shard_limit)
-                with span("score/dispatch", parent=score_span, rows=len(shard),
-                          pad_to=pad_to, shards=self._ndata) as sp:
-                    dev = st.to_device()
-                    local = dispatch(dev["batch"], dev["lengths"], dev.get("limit"), sel, False)
-                    result = self.mesh.all_gather(local, "data")
-                    sp.fence(result)
-                return result
-            ragged = ragged_fit(batch_docs, pad_to)
-            if ragged is not None:
-                rows_flat, step = ragged
-                observe_fill(rows_flat * RAGGED_CHUNK, 8 * rows)
-                with span("score/pack", parent=score_span, rows=rows, pad_to=pad_to):
-                    st = self._stage_ragged(batch_docs, pad_to, limit_np, rows_flat, step)
-                with span("score/dispatch", parent=score_span, rows=rows,
-                          pad_to=pad_to) as sp:
-                    dev = st.to_device()
-                    batch = unpack_ragged(dev["flat"], dev["offs"], dev["lengths"], pad_to)
-                    result = dispatch(batch, dev["lengths"], dev.get("limit"), sel, False)
-                    sp.fence(result)
-                return result
-            observe_fill(rows * pad_to, 4 * rows)
-            with span("score/pack", parent=score_span, rows=rows, pad_to=pad_to):
-                st = self._stage_padded(batch_docs, pad_to, limit_np)
-            with span("score/dispatch", parent=score_span, rows=rows, pad_to=pad_to) as sp:
-                dev = st.to_device()
-                result = dispatch(dev["batch"], dev["lengths"], dev.get("limit"), sel, False)
-                sp.fence(result)
-            return result
+                docs = [w.chunks[k] for k in sel]
+            return self._pack_dispatch(
+                docs, pad_to, self._limit_np(w.limits[sel]),
+                lambda batch, lengths, limit: dispatch(batch, lengths, limit, labels),
+                parent=score_span, wire=wire, ragged=self.mesh is None,
+            )
 
         def project(sel, result):
             """A batch's device result → (tensors to fetch, chunk positions):
@@ -1340,136 +1086,260 @@ class BatchRunner:
                 return (result,), None
             if result.dim() == 1:
                 return (result, None), _NO_POS
-            pos = chunk_pos(sel)
+            pos = w.chunk_pos(sel)
             am = score_ops.argmax_language(result)
             sub = result[upload(pos, result.device)] if pos.size else None
             return (am, sub), pos
 
-        def fetch_all(tensors, handles=None):
-            handles = handles or [None] * len(tensors)
-            return tuple(
-                None if t is None else self._fetch(t, h) for t, h in zip(tensors, handles)
+        def degraded(sel, pad_to, cause):
+            # A kernel strategy (fused, pallas, hybrid, hist; on the CPU,
+            # their plain versions) falls to the device gather first,
+            # ``gather`` straight to the host.
+            return self._ladder(
+                w.docs(sel), w.limits[sel], pad_to, cause,
+                None if self.strategy == "gather" else self._gather_escape, self._host_scores,
             )
 
-        def on_retry(attempt_no, delay_s, exc):
-            """Per-retry bookkeeping shared by the dispatch and fetch sites
-            (RetryPolicy.run logs the attempt itself). List append is atomic
-            under the GIL, so dispatch workers need no extra lock."""
-            self.metrics.incr("retries")
-            REGISTRY.incr("score/retries")
-            call_retries.append(1)
+        def scatter(sel, fetched, pos):
+            if not want_labels:
+                np.add.at(out, w.doc_idx[sel], fetched[0][: len(sel)])
+                return
+            am_host, sub_host = fetched
+            whole = np.ones(len(sel), dtype=bool)
+            if pos.size:
+                whole[pos] = False
+                rows = [w.chunk_rank[int(w.doc_idx[sel[p]])] for p in pos]
+                np.add.at(chunk_acc, rows, sub_host)
+            out[w.doc_idx[sel][whole]] = am_host[: len(sel)][whole]
 
-        def degraded_for(sel, pad_to, cause):
-            batch_docs = chunk_bytes(sel)
-            batch_limits = limits_arr[sel]
-            return self._degraded_scores(batch_docs, batch_limits, pad_to, cause)
-
-        def on_recovered():
-            if self._degraded_mode and self.breaker.state == CLOSED:
-                # Fast path healthy again and the breaker agrees.
-                self._degraded_mode = False
-                REGISTRY.set_gauge("langdetect_degraded", 0.0)
-                log_event(_log, "runner.degraded_recovered")
-
-        def dispatch_recover(sel, pad_to):
-            return guarded_dispatch(
-                lambda: build_and_dispatch(sel, pad_to),
-                policy=self.retry_policy,
-                site="score/dispatch",
-                breaker=self.breaker if ladder else None,
-                degraded=(lambda cause: degraded_for(sel, pad_to, cause)) if ladder else None,
-                on_retry=on_retry,
-                on_recovered=on_recovered,
-                log_fields={"rows": len(sel)},
-            )
-
-        def run_one(item):
-            """Pack, copy, dispatch and project one planned batch. Only
-            (sel, pad_to) is kept for a replay: the buffers are rebuilt from
-            the chunks on the rare fetch failure."""
-            sel, pad_to = item
-            t0 = time.perf_counter()
-            result = dispatch_recover(sel, pad_to)
-            REGISTRY.observe("score/batch_latency_s", time.perf_counter() - t0)
-            return sel, project(sel, result), pad_to
-
-        workers = self.dispatch_workers
-        if workers is None:
-            workers = DISPATCH_WORKERS
-        workers = max(1, min(int(workers), len(plan)))
-        if self.mesh is not None:
-            workers = 1  # one thread keeps every rank's collectives in one order
-        call_retries: list[int] = []
         with trace(label="score"), span(
-            "score", docs=N_in, unique=N, batches=len(plan), strategy=self.strategy,
+            "score", docs=w.n_in, unique=w.n, batches=len(w.plan), strategy=self.strategy,
             strategy_reason=getattr(self, "strategy_reason", "explicit"),
         ) as score_span:
-            pending = run_ordered(plan, run_one, workers)
-            with span("score/fetch", batches=len(plan)):
-                # Every batch's copy to pinned memory starts before the
-                # first fetch, so result copies overlap the remaining work.
-                started = [self._start_fetches(p[0]) for _, p, _ in pending]
-                for (sel, (tensors, pos), pad_to), handles in zip(pending, started):
-                    try:
-                        faults.inject("score/fetch")
-                        check_finite(tensors, "fetched score batch")
-                        fetched = fetch_all(tensors, handles)
-                    except Exception as e:
-                        # A failure surfacing only at the fetch: replay the
-                        # batch synchronously under the policy, then take
-                        # the ladder. Deterministic errors propagate.
-                        if not self.retry_policy.classify(e):
-                            raise
-
-                        def replay(sel=sel, pad_to=pad_to):
-                            faults.inject("score/fetch")
-                            got, got_pos = project(sel, build_and_dispatch(sel, pad_to))
-                            return fetch_all(got), got_pos
-
-                        try:
-                            fetched, pos = self.retry_policy.run(
-                                replay, site="score/fetch", breaker=self.breaker,
-                                on_retry=on_retry, initial_error=e,
-                                log_fields={"rows": len(sel)},
-                            )
-                        except Exception as e2:
-                            if not ladder or not self.retry_policy.classify(e2):
-                                raise
-                            got, pos = project(sel, degraded_for(sel, pad_to, e2))
-                            fetched = fetch_all(got)
-                    if want_labels:
-                        am_host, sub_host = fetched
-                        docs_of = doc_idx_arr[sel]
-                        whole = np.ones(len(sel), dtype=bool)
-                        if pos.size:
-                            whole[pos] = False
-                            rows = [chunk_rank[int(doc_idx_arr[sel[p]])] for p in pos]
-                            np.add.at(chunk_acc, rows, sub_host)
-                        out[docs_of[whole]] = am_host[: len(sel)][whole]
-                    else:
-                        np.add.at(out, doc_idx_arr[sel], fetched[0][: len(sel)])
+            retries = self._run_plan(
+                w.plan, build, project, degraded, scatter,
+                ladder=self._ladder_allowed() and not self._multiproc,
+            )
 
         # Host work of the call after ``score``: the chunked documents'
         # argmax, the dedup scatter-back and the call's bookkeeping.
-        with span("runner/finish", docs=N_in):
-            if want_labels and chunk_rank:
-                for i, r in chunk_rank.items():
+        with span("runner/finish", docs=w.n_in):
+            if chunk_acc is not None:
+                for i, r in w.chunk_rank.items():
                     out[i] = int(np.argmax(chunk_acc[r]))
-            if inverse is not None:
+            if w.inverse is not None:
                 # Deterministic scatter-back: every duplicate reads its unique
                 # row's result — bit-exact against an undeduped call on
                 # geometry-stable strategies (gather, fused), the reduction-
                 # order class on the matmul ones (hist, hybrid, pallas).
-                out = out[inverse]
-            self.metrics.incr("docs_scored", N_in)
-            REGISTRY.observe("score/retries_per_call", len(call_retries))
+                out = out[w.inverse]
+            self.metrics.incr("docs_scored", w.n_in)
+            REGISTRY.observe("score/retries_per_call", retries)
             log_event(
-                _log, "runner.score", docs=N_in, unique=N, chunks=n_chunks,
-                batches=len(plan), trace_id=current_trace_id(),
+                _log, "runner.score", docs=w.n_in, unique=w.n, chunks=len(w.doc_idx),
+                batches=len(w.plan), trace_id=current_trace_id(),
             )
-            if plan and not self._cost_recorded:
-                self._start_cost_thread(len(plan[0][0]), plan[0][1])
+            if w.plan and not self._cost_recorded:
+                self._start_cost_thread(len(w.plan[0][0]), w.plan[0][1])
         return out
+
+    def _unique_docs(self, byte_docs) -> tuple[list[bytes], np.ndarray | None]:
+        """The documents as scored (:meth:`scored_docs`), each once, and the
+        ``inverse`` that gives every duplicate its unique row's result (None
+        when dedup is off or finds none). Dedup keys on the truncated bytes
+        the kernel would see."""
+        docs = self.scored_docs(byte_docs)
+        if self.dedup and len(docs) > 1:
+            d = dedup_counted(docs)
+            if d is not None:
+                first_idx, inverse, _ = d
+                return [docs[int(i)] for i in first_idx], inverse
+        return docs, None
+
+    def _prepare(self, byte_docs, want_labels: bool) -> _Work:
+        """One whole-document call's work items, truncated, deduplicated,
+        chunked and planned. A ``DocBlock`` is the all-unique lane: content
+        dedup would re-materialize per-document bytes just to key on them."""
+        block = byte_docs if isinstance(byte_docs, DocBlock) else None
+        if block is not None and self.mesh is not None:
+            # A mesh shards padded rows: block inputs materialize (exact,
+            # not zero-copy), as in JAX.
+            byte_docs, block = [block.doc(i) for i in range(len(block))], None
+        w = _Work(n_in=len(byte_docs), block=block)
+        max_chunk = self.max_chunk
+        overlap = max(self.spec.gram_lengths) - 1
+        if block is not None:
+            doc_starts, doc_lens = block.starts(), block.lengths()
+            if self.max_score_bytes:
+                cap = self.max_score_bytes
+                if self.score_encoding == UTF8:
+                    doc_lens = utf8_safe_lengths(block.flat, doc_starts, doc_lens, cap)
+                else:
+                    doc_lens = np.minimum(doc_lens, cap)
+            w.n = len(block)
+            if w.n == 0:
+                return w
+            w.doc_idx, w.chunk_starts, w.chunk_lens, w.limits = chunk_table(
+                doc_starts, doc_lens, max_chunk, overlap
+            )
+            sizes = w.chunk_lens
+            chunked_docs = np.flatnonzero(doc_lens > max_chunk).tolist()
+        else:
+            docs, w.inverse = self._unique_docs(byte_docs)
+            w.n = len(docs)
+            if w.n == 0:
+                return w
+            stride = max_chunk - overlap
+            doc_idx: list[int] = []
+            chunks: list[bytes] = []
+            limits: list[int] = []
+            chunked_docs = []
+            for i, doc in enumerate(docs):
+                if len(doc) <= max_chunk:
+                    doc_idx.append(i)
+                    chunks.append(doc)
+                    limits.append(max_chunk)  # no-op limit
+                    continue
+                chunked_docs.append(i)
+                parts = chunk_document(doc, max_chunk, overlap)
+                for j, part in enumerate(parts):
+                    doc_idx.append(i)
+                    chunks.append(part)
+                    limits.append(stride if j < len(parts) - 1 else max_chunk)
+            w.chunks = chunks
+            w.doc_idx = np.asarray(doc_idx, dtype=np.int64)
+            w.limits = np.asarray(limits, dtype=np.int64)
+            sizes = [len(c) for c in chunks]
+        w.plan = self.plan(sizes)
+        # The chunk-length distribution at 64-byte granularity (the JAX
+        # package's tuner reads it): after truncation and chunking, the
+        # population the lattice pads.
+        edges = np.minimum(
+            -(-np.maximum(np.asarray(sizes, dtype=np.int64), 1) // 64) * 64, max_chunk
+        )
+        for edge, cnt in zip(*np.unique(edges, return_counts=True)):
+            REGISTRY.incr(f"exec/len/{int(edge)}", int(cnt))
+        # Chunked documents (longer than max_chunk) need their full score
+        # rows fetched and summed across chunks before the argmax; in label
+        # mode every other document fetches one int32.
+        w.chunk_rank = {i: r for r, i in enumerate(chunked_docs)}
+        if want_labels and chunked_docs:
+            w.chunked = np.isin(w.doc_idx, np.asarray(chunked_docs, dtype=np.int64))
+        return w
+
+    def _pack_dispatch(self, docs, pad_to: int, limit_np, run, *, parent, wire: bool = False,
+                       ragged: bool = False, segment: bool = False):
+        """One batch packed in its wire format (:class:`~..exec.pack.Batch`)
+        under ``score/pack``; copied, rebuilt and run as ``run(batch,
+        lengths, window_limit)`` under ``score/dispatch``. On a mesh this
+        rank packs its shard and the result is gathered over the data axis.
+        Segment batches count no fill and tag no ``shards``, as before."""
+        b = Batch(docs, pad_to, {"limit": (limit_np, self.max_chunk)}, wire=wire,
+                  ragged=ragged, mesh=self.mesh)
+        attrs = {"wire": True} if wire else {}
+        with span("score/pack", parent=parent, rows=b.rows, pad_to=pad_to, **attrs):
+            if wire:
+                faults.inject("score/pack")
+            st = self._staging.take(b.fields)
+            with st:
+                b.fill(st.views)
+        if not segment:
+            # Counted once the pack succeeded, so a replay after a failed
+            # wire build never counts its bytes twice. The window limits
+            # count in the wire form's bytes only, as in the JAX runner.
+            REGISTRY.observe("score/batch_fill_ratio", b.fill_ratio)
+            REGISTRY.observe("score/padding_waste", 1.0 - b.fill_ratio)
+            REGISTRY.incr("score/real_bytes", b.real_bytes)
+            REGISTRY.incr("score/capacity_bytes", b.capacity)
+            REGISTRY.incr("score/wire_bytes", b.nbytes if wire else b.capacity + b.index_bytes)
+            REGISTRY.incr("score/wire_docs", b.rows)
+            if wire:
+                REGISTRY.incr("score/encoded_batches")
+            if self.mesh is not None:
+                attrs["shards"] = self._ndata
+        with span("score/dispatch", parent=parent, rows=b.rows, pad_to=pad_to, **attrs) as sp:
+            dev = st.to_device()
+            batch, lengths = b.rebuild(dev)
+            result = run(batch, lengths, dev.get("limit"))
+            if self.mesh is not None:
+                result = self.mesh.all_gather(result, "data")
+            sp.fence(result)
+        return result
+
+    def _run_plan(self, plan, build, project, degraded, scatter, *, ladder: bool,
+                  segment: bool = False) -> int:
+        """Run one call's planned batches; returns the call's retries.
+
+        ``build(sel, pad_to)`` runs on the dispatch workers (one on a mesh,
+        so every rank's collectives keep one order) under
+        ``guarded_dispatch``, with ``degraded(sel, pad_to, cause)`` as the
+        ladder where ``ladder``; ``project(sel, result)`` gives (tensors to
+        fetch, positions). Every copy to pinned memory starts before the
+        first fetch; a failed fetch replays its batch under the policy,
+        then takes the ladder where allowed. The host arrays go to
+        ``scatter(sel, fetched, positions)`` in plan order. Segment calls
+        keep what they had: logs that say ``segment``, and no batch
+        latency, no gauge reset on recovery, no finiteness check and no
+        ``score/fetch`` fault in a replay."""
+        retries: list[int] = []
+
+        def on_retry(attempt_no, delay_s, exc):
+            # RetryPolicy.run logs the attempt itself. A list append is
+            # atomic under the GIL, so dispatch workers need no extra lock.
+            self.metrics.incr("retries")
+            REGISTRY.incr("score/retries")
+            retries.append(1)
+
+        def run_one(item):
+            sel, pad_to = item
+            t0 = time.perf_counter()
+            result = guarded_dispatch(
+                lambda: build(sel, pad_to),
+                policy=self.retry_policy,
+                site="score/dispatch",
+                breaker=self.breaker if ladder else None,
+                degraded=(lambda cause: degraded(sel, pad_to, cause)) if ladder else None,
+                on_retry=on_retry,
+                on_recovered=None if segment else self._recovered,
+                log_fields={"rows": len(sel), "segment": True} if segment else {"rows": len(sel)},
+            )
+            if not segment:
+                REGISTRY.observe("score/batch_latency_s", time.perf_counter() - t0)
+            return sel, pad_to, project(sel, result)
+
+        workers = DISPATCH_WORKERS if self.dispatch_workers is None else self.dispatch_workers
+        pending = run_ordered(plan, run_one, 1 if self.mesh is not None else workers)
+        with span("score/fetch", batches=len(plan)):
+            started = [self._start_fetches(tensors) for _, _, (tensors, _) in pending]
+            for (sel, pad_to, (tensors, pos)), handles in zip(pending, started):
+                try:
+                    faults.inject("score/fetch")
+                    if not segment:
+                        check_finite(tensors, "fetched score batch")
+                    fetched = self._fetch(tensors, handles)
+                except Exception as e:
+                    if not self.retry_policy.classify(e):
+                        raise
+
+                    def replay(sel=sel, pad_to=pad_to):
+                        if not segment:
+                            faults.inject("score/fetch")
+                        got, got_pos = project(sel, build(sel, pad_to))
+                        return self._fetch(got), got_pos
+
+                    try:
+                        fetched, pos = self.retry_policy.run(
+                            replay, site="score/fetch", breaker=self.breaker,
+                            on_retry=on_retry, initial_error=e,
+                            log_fields={"rows": len(sel)},
+                        )
+                    except Exception as e2:
+                        if not ladder or not self.retry_policy.classify(e2):
+                            raise
+                        got, pos = project(sel, degraded(sel, pad_to, e2))
+                        fetched = self._fetch(got)
+                scatter(sel, fetched, pos)
+        return len(retries)
 
     def _start_cost_thread(self, rows: int, pad_to: int) -> None:
         """The roofline cost gauges, once per runner, at the shape of the
@@ -1541,14 +1411,8 @@ class BatchRunner:
             raise
 
     def _segment_traced(self, byte_docs, cell: int):
-        byte_docs = self.scored_docs(byte_docs)
         N_in = len(byte_docs)
-        inverse = None
-        if self.dedup and N_in > 1:
-            d = dedup_counted(byte_docs)
-            if d is not None:
-                first_idx, inverse, _ = d
-                byte_docs = [byte_docs[int(i)] for i in first_idx]
+        byte_docs, inverse = self._unique_docs(byte_docs)
         L = self.num_langs
         out: list[np.ndarray] = []
         if not byte_docs:
@@ -1600,88 +1464,46 @@ class BatchRunner:
                     takes.append(n_cells - off)
         limits_arr = np.asarray(limits, dtype=np.int64)
         plan = self.plan([len(c) for c in chunks])
-        ladder = self._ladder_allowed(segment=True) and not self._multiproc
-
-        def on_retry(attempt_no, delay_s, exc):
-            self.metrics.incr("retries")
-            REGISTRY.incr("score/retries")
 
         def owned(sel, cells):
             # Cells past the longest owned range of the batch are padding.
             return cells[:, : max(takes[k] for k in sel)]
 
-        def build_and_dispatch(sel, pad_to):
-            batch_docs = [chunks[k] for k in sel]
-            limit_np = self._limit_np(limits_arr[sel])
-            if self.mesh is not None:
-                batch_docs, limit_np = self._mesh_rows(batch_docs, limit_np)
-            with span("score/pack", parent=seg_span, rows=len(batch_docs), pad_to=pad_to):
-                st = self._stage_padded(batch_docs, pad_to, limit_np)
-            with span("score/dispatch", parent=seg_span, rows=len(batch_docs),
-                      pad_to=pad_to) as sp:
-                dev = st.to_device()
-                cells = self._segment_dispatch_device(
-                    dev["batch"], dev["lengths"], dev.get("limit"), cell
-                )
-                if self.mesh is not None:
-                    cells = self.mesh.all_gather(cells, "data")
-                sp.fence(cells)
-            return owned(sel, cells)
-
-        def degraded_for(sel, pad_to, cause):
-            return owned(sel, self._segment_degraded(
-                [chunks[k] for k in sel], limits_arr[sel], pad_to, cell, cause
+        def build(sel, pad_to):
+            return owned(sel, self._pack_dispatch(
+                [chunks[k] for k in sel], pad_to, self._limit_np(limits_arr[sel]),
+                lambda batch, lengths, limit: self._segment_dispatch_device(
+                    batch, lengths, limit, cell
+                ),
+                parent=seg_span, segment=True,
             ))
 
-        def run_one(item):
-            sel, pad_to = item
-            cells = guarded_dispatch(
-                lambda: build_and_dispatch(sel, pad_to),
-                policy=self.retry_policy,
-                site="score/dispatch",
-                breaker=self.breaker if ladder else None,
-                degraded=(lambda cause: degraded_for(sel, pad_to, cause)) if ladder else None,
-                on_retry=on_retry,
-                log_fields={"rows": len(sel), "segment": True},
-            )
-            return sel, pad_to, cells
+        def degraded(sel, pad_to, cause):
+            # Only a fused runner has another device program to fall back
+            # from: every other strategy's segment dispatch is the gather
+            # cell scorer already.
+            return owned(sel, self._ladder(
+                [chunks[k] for k in sel], limits_arr[sel], pad_to, cause,
+                (lambda b, ln, lim: self._window_scores_device(b, ln, lim, cell))
+                if self.strategy == "fused" else None,
+                lambda b, ln, lim: self._host_window_scores(b, ln, lim, cell), segment=True,
+            ))
 
-        workers = self.dispatch_workers
-        if workers is None:
-            workers = DISPATCH_WORKERS
-        workers = max(1, min(int(workers), len(plan)))
-        if self.mesh is not None:
-            workers = 1
+        def scatter(sel, fetched, pos):
+            host = fetched[0]
+            for r, k in enumerate(sel):
+                off, take = cell_offs[k], takes[k]
+                out[doc_idx[k]][off : off + take] = host[r, :take]
+
         with trace_request(), span(
             "score", docs=N_in, unique=len(byte_docs), batches=len(plan),
             strategy=self.strategy, segment=True, cell=cell,
         ) as seg_span:
-            pending = run_ordered(plan, run_one, workers)
-            with span("score/fetch", batches=len(plan)):
-                started = [self._start_fetches([c])[0] for _, _, c in pending]
-                for (sel, pad_to, cells), handle in zip(pending, started):
-                    try:
-                        faults.inject("score/fetch")
-                        host = self._fetch(cells, handle)
-                    except Exception as e:
-                        if not self.retry_policy.classify(e):
-                            raise
-                        try:
-                            host = self.retry_policy.run(
-                                lambda sel=sel, pad_to=pad_to: self._fetch(
-                                    build_and_dispatch(sel, pad_to)
-                                ),
-                                site="score/fetch", breaker=self.breaker,
-                                on_retry=on_retry, initial_error=e,
-                                log_fields={"rows": len(sel)},
-                            )
-                        except Exception as e2:
-                            if not ladder or not self.retry_policy.classify(e2):
-                                raise
-                            host = self._fetch(degraded_for(sel, pad_to, e2))
-                    for r, k in enumerate(sel):
-                        off, take = cell_offs[k], takes[k]
-                        out[doc_idx[k]][off : off + take] = host[r, :take]
+            self._run_plan(
+                plan, build, lambda sel, cells: ((cells,), None), degraded, scatter,
+                ladder=self._ladder_allowed(segment=True) and not self._multiproc,
+                segment=True,
+            )
 
         self.metrics.incr("docs_scored", N_in)
         log_event(

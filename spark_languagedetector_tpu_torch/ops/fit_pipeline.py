@@ -11,20 +11,17 @@ Port of ``spark_languagedetector_tpu.ops.fit_pipeline``:
     counters). Items are length-sorted and grouped per length bucket with
     rows sized under a byte budget.
   * :func:`iter_device_batches` — one packer thread walks the plan in
-    order and packs each batch into pinned host memory in one of three
-    forms — padded (``native.pack_batch``), ragged when the chunk-aligned
-    flat buffer is smaller than the padded one (``native.pack_ragged``), or
-    the raw wire form (``wire_from_docs``) when
-    ``LANGDETECT_DEVICE_ENCODE`` asks for it — and starts its
-    ``non_blocking`` copy, keeping :data:`FIT_PIPELINE_DEPTH` batches ahead
-    of the count step. The consumer rebuilds the padded batch on the device
-    (``ops.encoding.unpack_ragged``, ``ops.encode_device.encode_batch``), in
-    plan order.
+    order and packs each batch into pinned host memory in the wire format
+    of :mod:`..exec.pack`, which the transform runner shares: padded,
+    ragged when the chunk-aligned flat buffer is smaller than the padded
+    one, or as raw bytes (the wire form) when ``LANGDETECT_DEVICE_ENCODE``
+    asks for it. It starts each batch's ``non_blocking`` copy, keeping
+    :data:`FIT_PIPELINE_DEPTH` batches ahead of the count step; the
+    consumer rebuilds the padded batch on the device, in plan order.
   * on a mesh (``mesh=``), each planned batch is padded with empty rows to
-    a multiple of the data axis (:func:`..parallel.mesh.pad_rows_for_mesh`,
-    the multiplicity padded with 1; empty rows count nothing) and each rank
-    packs and copies only its shard of the rows, padded or ragged; the
-    wire form is off there, as in JAX;
+    a multiple of the data axis (the multiplicity padded with 1; empty rows
+    count nothing) and each rank packs and copies only its shard of the
+    rows, padded or ragged; the wire form is off there, as in JAX;
   * :func:`resolve_fit_batching` — an explicit ``batch_rows`` (the
     estimator's ``fitBatchRows``) wins, then ``LANGDETECT_FIT_BATCH_ROWS``,
     else rows adapt per bucket under ``LANGDETECT_FIT_BATCH_BYTES``
@@ -51,10 +48,10 @@ from ..exec.core import (
     plan_micro_batches,
     rows_under_byte_budget,
 )
+from ..exec.pack import PADDED, RAGGED, WIRE, Batch
 from ..exec.staging import HostStaging
 from ..telemetry import REGISTRY, span
-from .encode_device import encode_batch, wire_capacity, wire_from_docs
-from .encoding import RAGGED_CHUNK, bucket_length, ragged_fit, unpack_ragged
+from .encoding import bucket_length
 from .vocab import VocabSpec
 
 # Byte budget for one micro-batch's padded copy, the JAX package's default:
@@ -229,94 +226,38 @@ def iter_device_batches(
     native.available()  # the one-time build, outside the pipelined loop
     device_encode = bool(exec_config.resolve("device_encode")) and mesh is None
     staging = HostStaging(device)
-    u8, i32 = np.uint8, np.int32
 
     def pack_one(planned):
         sel, pad_to = planned
-        batch_docs = [items[k] for k in sel]
-        blangs = item_langs[sel]
-        bmult = None if item_mult is None else item_mult[sel]
-        if mesh is not None:
-            from ..parallel.mesh import DATA_AXIS, pad_rows_for_mesh
-
-            ndata = mesh.shape[DATA_AXIS]
-            if bmult is None:
-                batch_docs, blangs = pad_rows_for_mesh(batch_docs, ndata, (blangs, 0))
-            else:
-                batch_docs, blangs, bmult = pad_rows_for_mesh(
-                    batch_docs, ndata, (blangs, 0), (bmult, 1)
-                )
-            batch_docs, blangs = mesh.shard_rows(batch_docs), mesh.shard_rows(blangs)
-            bmult = None if bmult is None else mesh.shard_rows(bmult)
-        rows = len(batch_docs)
-        real_bytes = sum(len(d) for d in batch_docs)
+        mult = None if item_mult is None else item_mult[sel]
         # The planner's chunk-split already bounds every doc <= pad_to, so
         # the wire form's join is the exact content.
-        ragged = None if device_encode else ragged_fit(batch_docs, pad_to)
-        form = "wire" if device_encode else "padded" if ragged is None else "ragged"
-        cols = [("langs", i32, (rows,))]
-        if item_mult is not None:
-            cols.append(("mult", i32, (rows,)))
-        if form == "wire":
-            capacity = wire_capacity(real_bytes, rows, pad_to)
-            fields = [("wire", u8, (capacity,)), ("starts", i32, (rows,)),
-                      ("lengths", i32, (rows,))]
-        elif form == "ragged":
-            rows_flat, flat_step = ragged
-            capacity = rows_flat * RAGGED_CHUNK
-            fields = [("flat", u8, (capacity // RAGGED_CHUNK, RAGGED_CHUNK)),
-                      ("offs", i32, (rows,)), ("lengths", i32, (rows,))]
-        else:
-            capacity = rows * pad_to
-            fields = [("batch", u8, (rows, pad_to)), ("lengths", i32, (rows,))]
-        st = staging.take(fields + cols)
-        with st:
-            v = st.views
-            with span("fit/pack", rows=rows, pad_to=pad_to,
-                      **{"wire": True} if form == "wire" else {"ragged": form == "ragged"}):
-                if form == "wire":
-                    _, starts, lengths = wire_from_docs(batch_docs, capacity, out=v["wire"])
-                    v["starts"][:] = starts
-                    v["lengths"][:] = lengths
-                elif form == "ragged":
-                    _, offs, lengths = native.pack_ragged(
-                        batch_docs, pad_to, flat_step=flat_step, out=v["flat"]
-                    )
-                    v["offs"][:] = offs
-                    v["lengths"][:] = lengths
-                else:
-                    native.pack_batch(batch_docs, pad_to, out=v["batch"],
-                                      lengths_out=v["lengths"])
-                v["langs"][:] = blangs
-                if bmult is not None:
-                    v["mult"][:] = bmult
-        if form != "padded":
-            REGISTRY.incr(f"fit/{'encoded' if form == 'wire' else 'ragged'}_batches")
-        fill = real_bytes / capacity if capacity else 1.0
-        REGISTRY.observe("fit/batch_fill_ratio", fill)
-        REGISTRY.observe("fit/padding_waste", 1.0 - fill)
-        REGISTRY.incr("fit/real_bytes", real_bytes)
-        REGISTRY.incr("fit/capacity_bytes", capacity)
-        REGISTRY.incr(
-            "fit/wire_bytes", sum(a.nbytes for a in v.values()),
-        )
-        with span("fit/put", rows=rows, pad_to=pad_to) as sp:
+        b = Batch([items[k] for k in sel], pad_to,
+                  {"langs": (item_langs[sel], 0), "mult": (mult, 1)},
+                  wire=device_encode, ragged=True, mesh=mesh)
+        st = staging.take(b.fields)
+        form = {"wire": True} if b.form == WIRE else {"ragged": b.form == RAGGED}
+        with st, span("fit/pack", rows=b.rows, pad_to=pad_to, **form):
+            b.fill(st.views)
+        if b.form != PADDED:
+            REGISTRY.incr(f"fit/{'encoded' if b.form == WIRE else 'ragged'}_batches")
+        REGISTRY.observe("fit/batch_fill_ratio", b.fill_ratio)
+        REGISTRY.observe("fit/padding_waste", 1.0 - b.fill_ratio)
+        REGISTRY.incr("fit/real_bytes", b.real_bytes)
+        REGISTRY.incr("fit/capacity_bytes", b.capacity)
+        REGISTRY.incr("fit/wire_bytes", b.nbytes)
+        with span("fit/put", rows=b.rows, pad_to=pad_to) as sp:
             dev = st.to_device()
             sp.fence(*dev.values())
-        return form, dev, rows, pad_to
+        return b, dev
 
     pipeline = ordered_prefetch(
         plan, pack_one, depth=FIT_PIPELINE_DEPTH, abort_wait=False
     )
     try:
         for _, packed, _, _ in pipeline:
-            form, dev, rows, pad_to = packed()
-            if form == "wire":
-                batch = encode_batch(dev["wire"], dev["starts"], dev["lengths"], pad_to)
-            elif form == "ragged":
-                batch = unpack_ragged(dev["flat"], dev["offs"], dev["lengths"], pad_to)
-            else:
-                batch = dev["batch"]
-            yield batch, dev["lengths"], dev["langs"], dev.get("mult"), rows, pad_to
+            b, dev = packed()
+            batch, lengths = b.rebuild(dev)
+            yield batch, lengths, dev["langs"], dev.get("mult"), b.rows, b.pad_to
     finally:
         pipeline.close()

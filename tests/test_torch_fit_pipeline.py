@@ -22,6 +22,7 @@ import torch
 from spark_languagedetector_tpu.ops import fit_pipeline as jfp
 from spark_languagedetector_tpu.ops.vocab import VocabSpec as JaxVocabSpec
 from spark_languagedetector_tpu.telemetry import REGISTRY as JREGISTRY
+from spark_languagedetector_tpu_torch.exec import pack as pack_mod
 from spark_languagedetector_tpu_torch.ops import fit_pipeline as fp
 from spark_languagedetector_tpu_torch.ops import fit_tpu as ft
 from spark_languagedetector_tpu_torch.ops.encoding import pad_batch
@@ -51,8 +52,8 @@ def _drain(items, item_langs, plan, mult, **kw):
 def test_every_form_rebuilds_pad_batch_in_plan_order(device_encode, monkeypatch):
     forms = []
     for name in ("unpack_ragged", "encode_batch"):
-        real = getattr(fp, name)
-        monkeypatch.setattr(fp, name, lambda *a, _r=real, _n=name: forms.append(_n) or _r(*a))
+        real = getattr(pack_mod, name)
+        monkeypatch.setattr(pack_mod, name, lambda *a, _r=real, _n=name: forms.append(_n) or _r(*a))
     docs, langs = _corpus()
     spec = VocabSpec(*SPEC)
     items, item_langs, plan, _, mult = fp.plan_fit_batches(docs, langs, spec, batch_rows=64)

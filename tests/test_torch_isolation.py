@@ -179,7 +179,7 @@ def test_execution_layer_runs_with_jax_unimportable():
             sys.modules[name] = None  # any import of it raises ImportError
         import numpy as np
         from spark_languagedetector_tpu_torch import LanguageDetector, Table, native
-        from spark_languagedetector_tpu_torch.api import runner as runner_mod
+        from spark_languagedetector_tpu_torch.exec import pack as pack_mod
         from spark_languagedetector_tpu_torch.resilience import faults
         from spark_languagedetector_tpu_torch.resilience.faults import FaultPlan
         from spark_languagedetector_tpu_torch.telemetry import REGISTRY
@@ -194,8 +194,8 @@ def test_execution_layer_runs_with_jax_unimportable():
         det = LanguageDetector(["en", "de"], [1, 2, 3], 50, device="cpu")
         model = det.fit(Table({"lang": labels, "fulltext": texts}))
         unpacks = []
-        real = runner_mod.unpack_ragged
-        runner_mod.unpack_ragged = lambda *a: unpacks.append(1) or real(*a)
+        real = pack_mod.unpack_ragged
+        pack_mod.unpack_ragged = lambda *a: unpacks.append(1) or real(*a)
         docs = texts + texts[:40]  # duplicates
         r = model.runner
         r.length_buckets, r.batch_size, r.dispatch_workers = (128, 2048), 64, 2

@@ -32,6 +32,7 @@ from spark_languagedetector_tpu.ops.vocab import VocabSpec as JaxVocabSpec
 from spark_languagedetector_tpu.telemetry import REGISTRY as JREGISTRY
 from spark_languagedetector_tpu_torch.api import runner as runner_mod
 from spark_languagedetector_tpu_torch.api.runner import BatchRunner
+from spark_languagedetector_tpu_torch.exec import pack as pack_mod
 from spark_languagedetector_tpu_torch.models.profile import GramProfile
 from spark_languagedetector_tpu_torch.ops import KernelBuildError, KernelLaunchError
 from spark_languagedetector_tpu_torch.ops import _kernels, score_fused, score_hist
@@ -144,20 +145,20 @@ def test_forms_lanes_workers_and_dedup_are_bit_identical(profiles, pname, strate
     profile = profiles[pname]
     docs = _docs(1)
     unpacks = []
-    real_unpack = runner_mod.unpack_ragged
+    real_unpack = pack_mod.unpack_ragged
 
     def counting_unpack(*a):
         unpacks.append(1)
         return real_unpack(*a)
 
-    monkeypatch.setattr(runner_mod, "unpack_ragged", counting_unpack)
+    monkeypatch.setattr(pack_mod, "unpack_ragged", counting_unpack)
     # The padded reference: the size test never picks the ragged form.
-    monkeypatch.setattr(runner_mod, "ragged_fit", lambda *a: None)
+    monkeypatch.setattr(pack_mod, "ragged_fit", lambda *a: None)
     base = _runner(profile, strategy, dedup=False, batch_size=64)
     ref_s, ref_l = base.score(docs), base.predict_ids(docs)
     assert not unpacks
     monkeypatch.undo()
-    monkeypatch.setattr(runner_mod, "unpack_ragged", counting_unpack)
+    monkeypatch.setattr(pack_mod, "unpack_ragged", counting_unpack)
     variants = {
         "ragged": dict(),
         "wire": dict(device_encode=True),
